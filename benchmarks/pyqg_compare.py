@@ -19,7 +19,6 @@ import csv
 import time
 
 import jax
-import jax.numpy as jnp
 
 from tpu_qg.config import ModelConfig
 from tpu_qg.constants import DAY, KM, MINUTES
@@ -37,7 +36,7 @@ def bench_tpu_qg(M: int, samples: int, dtype: str) -> float:
     steps = cfg.total_steps
 
     def run():
-        float(jnp.sum(model.run(state, steps).zeta))
+        jax.block_until_ready(model.run(state, steps))
 
     run()  # compile
     best = float("inf")

@@ -1,14 +1,11 @@
-"""Weak/strong scaling harness: grid-points/s per chip over a device mesh.
+"""Weak/strong scaling harness: grid-points/s per device over a device mesh.
 
-The BASELINE north-star reports grid-points/s/chip at 2048^2 and scaling
-efficiency from 1 chip to a multi-host slice. This environment exposes one
-physical TPU chip, so on real hardware this measures the 1-chip row; on a pod
-slice the same script measures every mesh size (run under
-`scripts/run_pod.sh`-style multi-host launch). With --fake-devices N it runs
-the full sweep on a virtual CPU mesh — correctness/shape validation of the
+Measures every mesh size from 1 device up to all the devices the process
+sees (e.g. the four GPUs of one host). With --fake-devices N it runs the
+full sweep on a virtual CPU mesh — correctness/shape validation of the
 sharded path, NOT a performance measurement (noted in the output).
 
-Weak scaling: each chip keeps a constant (tile_m x tile_p) tile, the global
+Weak scaling: each device keeps a constant (tile_m x tile_p) tile, the global
 grid grows with the mesh. Strong scaling: the global grid is fixed.
 
 Usage:
@@ -37,12 +34,7 @@ def main(argv=None):
                         help="global grid side for strong scaling")
     parser.add_argument("--steps", type=int, default=50)
     parser.add_argument("--reps", type=int, default=3)
-    parser.add_argument("--impl", default="halo",
-                        choices=["halo", "gspmd", "fused"],
-                        help="fused = the Pallas-kernel sharded step "
-                             "(tpu_qg.parallel.packed) on (n, 1) meshes; "
-                             "n=1 measures the sharded machinery against "
-                             "the single-chip fused default")
+    parser.add_argument("--impl", default="halo", choices=["halo", "gspmd"])
     parser.add_argument("--fake-devices", type=int, default=0,
                         help="run on a virtual CPU mesh of this size")
     parser.add_argument("--out", default=None)
@@ -54,8 +46,6 @@ def main(argv=None):
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", args.fake_devices)
 
-    import jax.numpy as jnp
-
     from tpu_qg.config import ModelConfig
     from tpu_qg.constants import KM
     from tpu_qg.models.core import QGModel, init_state
@@ -66,41 +56,25 @@ def main(argv=None):
     n_dev = len(jax.devices())
     mesh_sizes = [n for n in (1, 2, 4, 8, 16, 32, 64) if n <= n_dev]
 
-    def sync(s):
-        return float(jnp.sum(s.zeta))
+    sync = jax.block_until_ready
 
-    fused = args.impl == "fused"
     rows = []
     base_gps_per_chip = None
     for n in mesh_sizes:
-        if fused:
-            # The fused kernels need y local: 1-D row decomposition.
-            mesh = make_mesh((n, 1), devices=jax.devices()[:n])
-        else:
-            mesh = make_mesh(devices=jax.devices()[:n])
+        mesh = make_mesh(devices=jax.devices()[:n])
         mx, my = mesh.devices.shape
         if args.mode == "weak":
             M, P = args.tile * mx, args.tile * my
         else:
             M, P = args.grid, args.grid
         # Distributed-FFT divisibility: M/mx % my == 0 and P % (mx*my) == 0.
-        if (M // mx) % my or P % (mx * my) or (P // my) % 128:
+        if (M // mx) % my or P % (mx * my):
             print(f"n={n}: mesh {mx}x{my} incompatible with grid {M}x{P}, skipped")
             continue
 
         cfg = ModelConfig(M=M, P=P, Lx=4000.0 * KM, Ly=4000.0 * KM,
-                          dt=60.0, T=3600.0, dtype="float32",
-                          use_pallas=fused)
-        if fused:
-            from tpu_qg.parallel.stepper import fused_halo_supported
-            if not fused_halo_supported(cfg, mesh):
-                print(f"n={n}: fused path unsupported for {M}x{P}, skipped")
-                continue
-            # n=1 included: mesh (1,1) must match the unsharded fused rate.
-            run = make_halo_run_fn(cfg, mesh, fused=True)
-            state = shard_state(init_state(cfg, key=jax.random.PRNGKey(0)),
-                                mesh)
-        elif n == 1:
+                          dt=60.0, T=3600.0, dtype="float32")
+        if n == 1:
             model = QGModel(cfg)
             run = lambda s, k: model.run(s, k)  # noqa: E731
             state = init_state(cfg, key=jax.random.PRNGKey(0))

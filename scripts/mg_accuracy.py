@@ -1,17 +1,16 @@
 """Trajectory-accuracy evidence for the multigrid cycle count (round 5).
 
-The pod-scale projection depends on mg_cycles: at 8192^2-per-chip weak
-scaling the MG route costs ~(kernel + C * cycle), so C=1 projects ~99%
-efficiency and C=2 ~59%. The solve error at C warm-started cycles is
+The multigrid route costs about (tendency + C * V-cycle) per step, so the
+cycle count C sets its speed. The solve error at C warm-started cycles is
 rho^C x (per-step psi change) — a systematic lag, not noise — so the
 right evidence is conserved-quantity drift against the spectral route
-over a long f32 run, the same criterion that sized the bf16x3 default
-(RESULTS.md float64 adjudication).
+over a long f32 run.
 
 Runs the two-layer model at --M for --steps with elliptic_impl=multigrid
 at each --cycles value on the (1,1)-mesh halo path (same code path as the
 pod route), records per-step zeta error vs the spectral trajectory and
-energy/enstrophy drift, writes results/mg_accuracy_<M>_<steps>.json.
+energy/enstrophy drift, writes results/mg_accuracy_<M>_<steps>.json. Runs on
+JAX's default backend (JAX_PLATFORMS=cpu for the CPU).
 
   python scripts/mg_accuracy.py --M 256 --steps 5000 --cycles 1,2,4
 """
@@ -28,12 +27,8 @@ for _p in (REPO, _SCRIPTS):
     if _p not in sys.path:
         sys.path.insert(0, _p)
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
-import jax.numpy as jnp  # noqa: E402
-import numpy as np  # noqa: E402
+import jax.numpy as jnp
+import numpy as np
 
 
 def energy_enstrophy(cfg, state):
@@ -45,10 +40,8 @@ def energy_enstrophy(cfg, state):
 
 
 def run_traj(cfg, psi0, steps, sample, mesh=None):
-    from tpu_qg.models.core import QGModel, init_state
+    from tpu_qg.models.core import init_state
     from tpu_qg.parallel import make_mesh, shard_state
-    from tpu_qg.parallel.stepper import make_halo_step_fn
-
     from tpu_qg.parallel.stepper import make_halo_run_fn
 
     if mesh is None:

@@ -1,7 +1,6 @@
 """Distributed-multigrid acceptance artifact on the virtual CPU mesh.
 
-Round-4 VERDICT item 1 acceptance: the distributed (halo-only) multigrid
-solve must match the spectral inverter to f32-roundoff at 2048^2 AND 8192^2
+Acceptance of the distributed (halo-only) multigrid: the solve must match the spectral inverter to f32-roundoff at 2048^2 AND 8192^2
 on (8,1) and (4,2) meshes. 2048^2 runs in CI (tests/test_multigrid.py);
 8192^2 is too heavy for the suite (GBs of f32 temporaries on the 2-CPU
 host), so this script runs it once and records the evidence.

@@ -6,7 +6,7 @@ from tpu_qg.config import ModelConfig
 from tpu_qg.constants import KM, MINUTES, YEAR
 from tpu_qg.models import QGModel, init_state
 from tpu_qg.utils.diagnostics import cfl_number, diagnostics, energy, enstrophy
-from tpu_qg.utils.profiling import Timer, roofline_report
+from tpu_qg.utils.profiling import Timer
 
 
 def _cfg():
@@ -60,9 +60,14 @@ def test_timer_and_roofline():
         sum(range(1000))
     assert "a" in t.times and t.times["a"] > 0
     assert "a" in t.report()
-    r = roofline_report(cfg, step_seconds=1e-3)
-    assert 0 < r["fraction_of_light_speed"] < 1
-    assert r["estimated_min_bytes"] > 0
+    # A section given a device result stops the clock only once the result
+    # is ready; no bandwidth estimate is made without a device table.
+    from tpu_qg.utils import profiling
+    state = init_state(cfg, psi_init=np.zeros((2, cfg.M, cfg.P)))
+    with t.section("b", result=state.zeta):
+        pass
+    assert t.times["b"] > 0
+    assert not hasattr(profiling, "roofline_report")
 
 
 def test_energy_spectrum_parseval():

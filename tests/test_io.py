@@ -72,8 +72,8 @@ def test_exact_ab3_resume(tmp_path):
 
 
 def test_sharded_checkpoint_exact_resume(tmp_path):
-    """Sharded checkpoints (per-process shard files, no full-grid gather —
-    round-4 VERDICT item 6) resume bit-exactly onto the same mesh, and the
+    """Sharded checkpoints (per-process shard files, no full-grid gather)
+    resume bit-exactly onto the same mesh, and the
     reader assembles the same global state (mesh-changed / tooling path).
     Counterpart of the reference's single-writer JLD checkpoints
     (reference: src/run_model.jl:86-91) at pod-scale I/O shape."""

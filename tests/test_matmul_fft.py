@@ -78,14 +78,14 @@ def test_split_factor():
 
 
 def test_packed_inverter_mxu_matches_fft_version():
-    from tpu_qg.ops.spectral import PackedModalInverter, PackedModalInverterMXU
+    from tpu_qg.ops.spectral import PackedModalInverter, PackedModalInverterMatmul
 
     cfg = ModelConfig(M=256, P=128, Lx=4000.0 * KM, Ly=2000.0 * KM,
                       dt=60.0, T=3600.0, dtype="float32")
     args = (cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
             cfg.back_projection_matrix())
     ref_inv = PackedModalInverter(*args)
-    mxu_inv = PackedModalInverterMXU(*args)
+    mxu_inv = PackedModalInverterMatmul(*args)
 
     rng = np.random.default_rng(3)
     zeta = jnp.asarray(rng.standard_normal((2, cfg.M, cfg.P)), jnp.float32)

@@ -1,4 +1,4 @@
-"""End-to-end model tests: TPU path vs float64 reference twin, and regression
+"""End-to-end model tests: JAX path vs float64 reference twin, and regression
 properties the reference lacks (SURVEY.md section 4 gap-filling)."""
 
 import jax

@@ -126,97 +126,11 @@ def test_multigrid_mms_convergence():
     assert 1.7 < slope < 2.3, (slope, errs)
 
 
-def test_pallas_smoother_matches_xla():
-    """The fused Pallas smoother (nu sweeps + residual in one streamed
-    pass, ops/pallas_mg.py) reproduces the XLA sweep chain on the interior
-    (interpret mode), and the kernel-routed V-cycle converges to the same
-    spectral answer."""
-    from tpu_qg.ops.multigrid import (MultigridSolver, apply_helmholtz,
-                                      jacobi_smooth)
-    from tpu_qg.ops.pallas_mg import mg_smooth, mg_smooth_supported
-    from tpu_qg.ops.spectral import BatchedModalSolver
-
-    cfg = qg_cfg(M=256, P=256, dtype="float32")
-    alphas = (0.0, cfg.S_eig)
-    rng = np.random.default_rng(8)
-    f = jnp.asarray(rng.standard_normal((2, 256, 256)).astype(np.float32)
-                    * 1e-5)
-    u0 = jnp.asarray(rng.standard_normal((2, 256, 256)).astype(np.float32)
-                     * 1e-2)
-    assert mg_smooth_supported(2, 256, 256, 2, True)
-
-    a = jnp.asarray(alphas, jnp.float32).reshape(-1, 1, 1)
-    u_ref = u0
-    for _ in range(2):
-        u_ref = jacobi_smooth(u_ref, f, cfg.dx, a)
-    r_ref = f - apply_helmholtz(u_ref, cfg.dx, a)
-
-    u_k, r_k = mg_smooth(u0, f, cfg.dx, alphas, 2, True,
-                         interpret=True)
-    scale = float(np.abs(np.asarray(u_ref)).max())
-    np.testing.assert_allclose(np.asarray(u_k), np.asarray(u_ref), rtol=0,
-                               atol=1e-6 * scale)
-    rscale = float(np.abs(np.asarray(r_ref)).max())
-    np.testing.assert_allclose(np.asarray(r_k), np.asarray(r_ref), rtol=0,
-                               atol=1e-6 * rscale)
-
-    # Kernel-routed V-cycles converge to the spectral answer.
-    spectral = BatchedModalSolver(256, 256, cfg.dx, alphas)
-    ref = np.asarray(spectral(f))
-    mg = MultigridSolver(256, 256, cfg.dx, alphas, n_cycles=8,
-                         use_pallas="on", interpret=True)
-    got = np.asarray(mg(f))
-    s = np.abs(ref).max()
-    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-6 * s)
-
-
-def test_pallas_smoother_inkernel_restrict():
-    """restrict=True: the kernel's restricted-residual output equals
-    restrict_full_weighting(f - A u_smoothed) exactly, and the
-    kernel-routed V-cycle (which now takes this path) still converges to
-    the spectral answer."""
-    from tpu_qg.ops.multigrid import (MultigridSolver, apply_helmholtz,
-                                      jacobi_smooth,
-                                      restrict_full_weighting)
-    from tpu_qg.ops.pallas_mg import mg_smooth, mg_smooth_supported
-    from tpu_qg.ops.spectral import BatchedModalSolver
-
-    cfg = qg_cfg(M=256, P=512, dtype="float32")
-    alphas = (0.0, cfg.S_eig)
-    rng = np.random.default_rng(9)
-    f = jnp.asarray(rng.standard_normal((2, 256, 512)).astype(np.float32)
-                    * 1e-5)
-    u0 = jnp.asarray(rng.standard_normal((2, 256, 512)).astype(np.float32)
-                     * 1e-2)
-    assert mg_smooth_supported(2, 256, 512, 2, True, restrict=True)
-
-    a = jnp.asarray(alphas, jnp.float32).reshape(-1, 1, 1)
-    u_ref = u0
-    for _ in range(2):
-        u_ref = jacobi_smooth(u_ref, f, cfg.dx, a)
-    rc_ref = np.asarray(restrict_full_weighting(
-        f - apply_helmholtz(u_ref, cfg.dx, a)))
-
-    u_k, rc_k = mg_smooth(u0, f, cfg.dx, alphas, 2, True, 0.8, True, True)
-    assert rc_k.shape == (2, 128, 256)
-    scale = np.abs(rc_ref).max()
-    np.testing.assert_allclose(np.asarray(rc_k), rc_ref, rtol=0,
-                               atol=1e-6 * scale)
-
-    spectral = BatchedModalSolver(256, 512, cfg.dx, alphas)
-    ref = np.asarray(spectral(f))
-    mg = MultigridSolver(256, 512, cfg.dx, alphas, n_cycles=8,
-                         use_pallas="on", interpret=True)
-    got = np.asarray(mg(f))
-    s = np.abs(ref).max()
-    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-6 * s)
-
-
 @pytest.mark.parametrize("mesh_shape", [(8, 1), (4, 2), (2, 4)])
 def test_distributed_multigrid_matches_single_device(mesh_shape):
     """The distributed V-cycle (halo exchanges + gathered coarse solve)
     agrees with the single-device solver and the spectral reference on any
-    2-D mesh — including shapes the fused FFT path cannot take."""
+    2-D mesh."""
     from jax.sharding import PartitionSpec as Pspec
 
     from tpu_qg.ops.multigrid import MultigridSolver
@@ -250,10 +164,10 @@ def test_distributed_multigrid_matches_single_device(mesh_shape):
 
 @pytest.mark.parametrize("mesh_shape", [(8, 1), (4, 2)])
 def test_distributed_multigrid_2048_f32(mesh_shape):
-    """Round-4 VERDICT item 1 acceptance: the distributed multigrid solve
-    matches the spectral inverter to f32 roundoff at 2048^2 on (8,1) and
-    (4,2) virtual meshes (the 8192^2 leg runs as a standalone artifact,
-    results/mg_virtualmesh_8192.json — too heavy for CI)."""
+    """The distributed multigrid solve matches the spectral inverter to f32
+    roundoff at 2048^2 on (8,1) and (4,2) virtual meshes (the 8192^2 leg
+    runs as a standalone artifact, results/mg_virtualmesh_8192.json — too
+    heavy for CI)."""
     from jax.sharding import PartitionSpec as Pspec
 
     from tpu_qg.ops.spectral import BatchedModalSolver

@@ -1,6 +1,6 @@
 """Multi-device sharding tests on the virtual 8-device CPU mesh
-(the fake-backend analog for testing domain decomposition without a pod,
-SURVEY.md section 4)."""
+(the fake-backend analog for testing domain decomposition without several
+cards, SURVEY.md section 4)."""
 
 import jax
 import numpy as np
@@ -214,566 +214,3 @@ def test_halo_overlap_small_tile_fallback():
     scale = np.abs(np.asarray(ref.zeta)).max()
     np.testing.assert_allclose(np.asarray(s.zeta), np.asarray(ref.zeta),
                                rtol=0, atol=1e-12 * scale)
-
-
-# ---------------------------------------------------------------------------
-# Pallas-fused sharded path (round-3: the sharded step on the same fused
-# kernels as the single-chip default — tpu_qg.parallel.packed + the sharded
-# v4 streamed kernel). All kernels run in interpret mode on the CPU mesh.
-
-
-def fused_cfg(**kw):
-    base = dict(
-        H_1=1.0 * KM, H_2=2.0 * KM, beta=2e-11,
-        Lx=4000.0 * KM, Ly=4000.0 * KM,
-        dt=60.0 * MINUTES, T=1.0 * YEAR, U=0.1,
-        M=256, P=256, visc=100.0, r=1e-7, R_d=40.0 * KM,
-        initial_kick=1e-6, dtype="float32",
-    )
-    base.update(kw)
-    return ModelConfig(**base)
-
-
-def _unsharded_fused_step(cfg):
-    """Single-device interpret-mode oracle on the SAME kernels: v4 streamed
-    step + fused-symbol Pallas-DFT packed inversion (the single-chip default
-    TPU path)."""
-    from tpu_qg.models.core import State
-    from tpu_qg.ops.pallas_tendency import fused_step_streamed
-    from tpu_qg.ops.spectral import PackedModalInverterPallasFFT
-
-    inverter = PackedModalInverterPallasFFT(
-        cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-        cfg.back_projection_matrix(), interpret=True)
-    assert inverter._fuse
-
-    def step(state):
-        zeta_new, carry = fused_step_streamed(
-            cfg, state.zeta, state.psi, state.f1, state.f2, state.step, True)
-        psi_new = inverter(zeta_new)
-        if cfg.time_scheme == "leapfrog_ra":
-            return State(zeta_new, psi_new, carry, state.f2, state.step + 1)
-        return State(zeta_new, psi_new, carry, state.f1, state.step + 1)
-
-    return step
-
-
-@pytest.mark.parametrize("nx,M,P", [(2, 256, 256), (4, 256, 512),
-                                    (8, 128, 1024)])
-def test_distributed_packed_inverter_matches_single(nx, M, P):
-    """The sharded packed inversion (local Pallas kernels + all_to_all
-    transposes) matches the single-chip fused inverter: identical kernels on
-    identical data, so agreement is to f32 roundoff."""
-    from jax.sharding import PartitionSpec as Pspec
-    from tpu_qg.parallel.packed import (DistributedPackedInverter,
-                                        distributed_packed_supported)
-    from tpu_qg.ops.spectral import PackedModalInverterPallasFFT
-
-    cfg = fused_cfg(M=M, P=P)
-    assert distributed_packed_supported(M, P, nx)
-    rng = np.random.default_rng(3)
-    zeta = np.asarray(rng.standard_normal((2, M, P)), np.float32)
-
-    single = PackedModalInverterPallasFFT(
-        M, P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-        cfg.back_projection_matrix(), interpret=True)
-    assert single._fuse
-    ref = np.asarray(single(zeta))
-
-    mesh = make_mesh((nx, 1), devices=jax.devices()[:nx])
-    dist = DistributedPackedInverter(
-        M, P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-        cfg.back_projection_matrix(), axis_x="x", interpret=True)
-    f = jax.jit(jax.shard_map(
-        dist, mesh=mesh, in_specs=(Pspec(None, "x", None),),
-        out_specs=Pspec(None, "x", None), check_vma=False))
-    got = np.asarray(f(zeta))
-
-    scale = np.abs(ref).max()
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * scale)
-
-
-@pytest.mark.parametrize("nx", [2, 4])
-def test_fused_halo_step_matches_unsharded_fused(nx):
-    """The fused sharded step (ppermute halo slabs -> sharded v4 kernel ->
-    distributed packed inversion) reproduces the single-chip fused step."""
-    from tpu_qg.parallel.stepper import fused_halo_supported, make_halo_step_fn
-
-    cfg = fused_cfg(M=256, P=128 * max(2, nx), wind_tau0=0.05)
-    mesh = make_mesh((nx, 1), devices=jax.devices()[:nx])
-    assert fused_halo_supported(cfg, mesh)
-
-    psi0 = _psi_init(cfg).astype(np.float32)
-    ref = init_state(cfg, psi_init=psi0)
-    oracle = _unsharded_fused_step(cfg)
-    for _ in range(3):
-        ref = oracle(ref)
-
-    step = make_halo_step_fn(cfg, mesh, donate=False, fused=True)
-    s = shard_state(init_state(cfg, psi_init=psi0), mesh)
-    for _ in range(3):
-        s = step(s)
-    assert int(s.step) == 3
-
-    for name in ("zeta", "psi", "f1"):
-        a, b = np.asarray(getattr(s, name)), np.asarray(getattr(ref, name))
-        scale = np.abs(b).max()
-        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * scale,
-                                   err_msg=name)
-
-
-@pytest.mark.parametrize("mesh_shape,M,P", [
-    ((2, 2), 256, 512), ((4, 2), 256, 1024), ((2, 4), 128, 1024)])
-def test_packed_inverter_2d_matches_single_chip(mesh_shape, M, P):
-    """Round-4 VERDICT item 3: the 2-D-mesh fused inversion (y-gather +
-    flattened-axes transposes + the SAME offset x-stage kernel) is bitwise
-    the single-chip fused inversion."""
-    from jax.sharding import PartitionSpec as Pspec
-
-    from tpu_qg.ops.spectral import PackedModalInverterPallasFFT
-    from tpu_qg.parallel.packed import (DistributedPackedInverter2D,
-                                        distributed_packed_2d_supported)
-
-    nx, ny = mesh_shape
-    cfg = fused_cfg(M=M, P=P)
-    assert distributed_packed_2d_supported(M, P, nx, ny)
-    rng = np.random.default_rng(3)
-    zeta = np.asarray(rng.standard_normal((2, M, P)), np.float32)
-    single = PackedModalInverterPallasFFT(
-        M, P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-        cfg.back_projection_matrix(), interpret=True)
-    ref = np.asarray(single(zeta))
-    mesh = make_mesh(mesh_shape)
-    dist = DistributedPackedInverter2D(
-        M, P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-        cfg.back_projection_matrix(), interpret=True)
-    f = jax.jit(jax.shard_map(
-        dist, mesh=mesh, in_specs=(Pspec(None, "x", "y"),),
-        out_specs=Pspec(None, "x", "y"), check_vma=False))
-    got = np.asarray(f(zeta))
-    np.testing.assert_array_equal(got, ref)
-
-
-@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 2)])
-def test_fused_halo_step_2d_matches_unsharded_fused(mesh_shape):
-    """Round-4 VERDICT item 3 acceptance: the 2-D-MESH fused step (sharded
-    v4 kernel with y-edge correction + 2-D packed inversion) reproduces the
-    single-chip fused trajectory on (2,2)/(4,2) meshes with the Pallas
-    kernels ENGAGED (fused=True forces the gate; a gate miss raises)."""
-    from tpu_qg.parallel.stepper import (fused_2d_shape_supported,
-                                         make_halo_step_fn)
-
-    nx, ny = mesh_shape
-    # fft_mxu pinned to highest: the oracle's single-chip inverter runs
-    # highest, and the bf16x3 delta (~2^-16) straddles the 1e-5 gate.
-    cfg = fused_cfg(M=256, P=128 * nx * ny, fft_mxu="highest")
-    assert fused_2d_shape_supported(cfg, nx, ny)
-    mesh = make_mesh(mesh_shape)
-
-    psi0 = _psi_init(cfg).astype(np.float32)
-    ref = init_state(cfg, psi_init=psi0)
-    oracle = _unsharded_fused_step(cfg)
-    for _ in range(3):
-        ref = oracle(ref)
-
-    step = make_halo_step_fn(cfg, mesh, donate=False, fused=True)
-    s = shard_state(init_state(cfg, psi_init=psi0), mesh)
-    for _ in range(3):
-        s = step(s)
-    assert int(s.step) == 3
-
-    # psi rides a 5e-5 gate (as in the chain tests): the y-edge columns'
-    # XLA-window-vs-kernel roundoff in zeta is amplified through the
-    # elliptic inversion's low-k symbols.
-    for name, tol in (("zeta", 1e-5), ("psi", 5e-5), ("f1", 1e-5)):
-        a, b = np.asarray(getattr(s, name)), np.asarray(getattr(ref, name))
-        scale = np.abs(b).max()
-        np.testing.assert_allclose(a, b, rtol=0, atol=tol * scale,
-                                   err_msg=name)
-
-
-def test_fused_halo_step_2d_leapfrog():
-    """Scheme coverage for the 2-D fused step's y-edge correction: the
-    leapfrog-RA carry splice matches the single-chip fused path."""
-    from tpu_qg.parallel.stepper import (fused_2d_shape_supported,
-                                         make_halo_step_fn)
-
-    cfg = fused_cfg(M=256, P=512, time_scheme="leapfrog_ra",
-                    fft_mxu="highest")
-    assert fused_2d_shape_supported(cfg, 2, 2)
-    mesh = make_mesh((2, 2))
-    psi0 = _psi_init(cfg).astype(np.float32)
-    ref = init_state(cfg, psi_init=psi0)
-    oracle = _unsharded_fused_step(cfg)
-    for _ in range(3):
-        ref = oracle(ref)
-    step = make_halo_step_fn(cfg, mesh, donate=False, fused=True)
-    s = shard_state(init_state(cfg, psi_init=psi0), mesh)
-    for _ in range(3):
-        s = step(s)
-    for name, tol in (("zeta", 1e-5), ("psi", 5e-5), ("f1", 1e-5)):
-        a, b = np.asarray(getattr(s, name)), np.asarray(getattr(ref, name))
-        scale = np.abs(b).max()
-        np.testing.assert_allclose(a, b, rtol=0, atol=tol * scale,
-                                   err_msg=name)
-
-
-def test_fused_halo_step_leapfrog():
-    """Scheme coverage: the leapfrog-RA carry (filtered zeta) flows through
-    the sharded kernel identically to the single-chip fused path."""
-    from tpu_qg.parallel.stepper import make_halo_step_fn
-
-    cfg = fused_cfg(M=256, P=512, time_scheme="leapfrog_ra")
-    mesh = make_mesh((4, 1), devices=jax.devices()[:4])
-    psi0 = _psi_init(cfg).astype(np.float32)
-    ref = init_state(cfg, psi_init=psi0)
-    oracle = _unsharded_fused_step(cfg)
-    for _ in range(3):
-        ref = oracle(ref)
-
-    step = make_halo_step_fn(cfg, mesh, donate=False, fused=True)
-    s = shard_state(init_state(cfg, psi_init=psi0), mesh)
-    for _ in range(3):
-        s = step(s)
-    for name in ("zeta", "psi", "f1"):
-        a, b = np.asarray(getattr(s, name)), np.asarray(getattr(ref, name))
-        scale = np.abs(b).max()
-        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * scale,
-                                   err_msg=name)
-
-
-def test_fused_halo_vs_generic_path():
-    """Cross-check against the INDEPENDENT generic sharded implementation
-    (roll stencils + jnp.fft distributed solve): different algorithms, same
-    math -> agreement at f32 kernel tolerance over a few steps."""
-    from tpu_qg.parallel.stepper import make_halo_step_fn
-
-    cfg = fused_cfg(M=256, P=512)
-    mesh = make_mesh((4, 1), devices=jax.devices()[:4])
-    psi0 = _psi_init(cfg).astype(np.float32)
-
-    fused = make_halo_step_fn(cfg, mesh, donate=False, fused=True)
-    plain = make_halo_step_fn(cfg, mesh, donate=False, fused=False)
-    sf = shard_state(init_state(cfg, psi_init=psi0), mesh)
-    sp = shard_state(init_state(cfg, psi_init=psi0), mesh)
-    for _ in range(3):
-        sf, sp = fused(sf), plain(sp)
-    scale = np.abs(np.asarray(sp.zeta)).max()
-    np.testing.assert_allclose(np.asarray(sf.zeta), np.asarray(sp.zeta),
-                               rtol=0, atol=2e-4 * scale)
-
-
-def test_fused_halo_gate():
-    """fused_halo_supported rejects what the kernels can't shard."""
-    from tpu_qg.parallel.stepper import fused_halo_supported
-
-    ok = fused_cfg(M=256, P=512)
-    dev4 = jax.devices()[:4]
-    assert fused_halo_supported(ok, make_mesh((4, 1), devices=dev4))
-    # P that does not split into whole strips per chip is rejected.
-    assert not fused_halo_supported(fused_cfg(M=256, P=256),
-                                    make_mesh((4, 1), devices=dev4))
-    # 2-D meshes shard y — the kernels need full lanes.
-    assert not fused_halo_supported(ok, make_mesh((2, 4)))
-    # P must split into whole 128-lane strips per chip.
-    assert not fused_halo_supported(fused_cfg(M=256, P=128),
-                                    make_mesh((4, 1), devices=dev4))
-    # f64 never routes to the fused kernels.
-    assert not fused_halo_supported(fused_cfg(P=512, dtype="float64"),
-                                    make_mesh((4, 1), devices=dev4))
-
-
-def _run_chain_single(cfg, psi0, n):
-    """Single-chip chain oracle, scanned exactly like the sharded run (the
-    per-step functions are BITWISE identical between the sharded and
-    single-chip chains — asserted separately below — but interpret-mode
-    kernels are visible to XLA, so scan-context compilation perturbs CPU dot
-    accumulation at the 1e-7 level; comparing scan-to-scan keeps that out of
-    the tolerance, which mainly absorbs the inversion's small-k
-    amplification of f32 noise into psi)."""
-    from tpu_qg.models import core
-
-    ti, st, te = core.make_chain_fns(cfg, interpret=True)
-    return core._run_chain(ti, st, te, init_state(cfg, psi_init=psi0), n)
-
-
-@pytest.mark.parametrize("nx", [2, 4])
-def test_sharded_chain_matches_single_chip_chain(nx):
-    """The sharded 2-kernel chain (v5 sharded kernel + distributed x-stage)
-    reproduces the single-chip chain trajectory, external form compared."""
-    from tpu_qg.parallel.stepper import make_halo_run_fn
-
-    cfg = fused_cfg(M=256, P=128 * max(2, nx), wind_tau0=0.05,
-                    step_chain="on", fft_pairx="on")
-    psi0 = _psi_init(cfg).astype(np.float32)
-    n = 3
-    ref = _run_chain_single(cfg, psi0, n)
-
-    mesh = make_mesh((nx, 1), devices=jax.devices()[:nx])
-    run = make_halo_run_fn(cfg, mesh, fused=True, chain=True)
-    s = shard_state(init_state(cfg, psi_init=psi0), mesh)
-    s = run(s, n)
-    assert int(s.step) == n
-    for name, tol in (("zeta", 1e-5), ("psi", 5e-5), ("f1", 1e-5)):
-        a, b = np.asarray(getattr(s, name)), np.asarray(getattr(ref, name))
-        scale = np.abs(b).max()
-        np.testing.assert_allclose(a, b, rtol=0, atol=tol * scale,
-                                   err_msg=name)
-
-
-def test_sharded_chain_step_bitwise():
-    """Outside scan, the sharded chain STEP is bitwise the single-chip chain
-    step (identical kernels on identical data — the real equality statement;
-    see _run_chain_single for why the scanned composition is only close)."""
-    from jax.sharding import PartitionSpec as Pspec
-    from tpu_qg.models import core
-    from tpu_qg.parallel.stepper import make_halo_chain_fns
-
-    cfg = fused_cfg(M=256, P=512, time_scheme="leapfrog_ra", step_chain="on")
-    psi0 = _psi_init(cfg).astype(np.float32)
-    ti, st, te = core.make_chain_fns(cfg, interpret=True)
-    mesh = make_mesh((4, 1), devices=jax.devices()[:4])
-    lti, lst, lte = make_halo_chain_fns(cfg, mesh)
-    specs = core.State(
-        zeta=Pspec(None, "x", None), psi=Pspec(None, "x", None),
-        f1=Pspec(None, "x", None), f2=Pspec(None, "x", None), step=Pspec())
-
-    def sm(f):
-        return jax.jit(jax.shard_map(f, mesh=mesh, in_specs=(specs,),
-                                     out_specs=specs, check_vma=False))
-
-    s_ref = ti(init_state(cfg, psi_init=psi0))
-    s_sh = sm(lti)(shard_state(init_state(cfg, psi_init=psi0), mesh))
-    sst = sm(lst)
-    for _ in range(3):
-        s_ref, s_sh = st(s_ref), sst(s_sh)
-        for name in ("zeta", "psi", "f1"):
-            np.testing.assert_array_equal(np.asarray(getattr(s_sh, name)),
-                                          np.asarray(getattr(s_ref, name)),
-                                          err_msg=name)
-
-
-def test_sharded_chain_leapfrog():
-    from tpu_qg.parallel.stepper import make_halo_run_fn
-
-    cfg = fused_cfg(M=256, P=512, time_scheme="leapfrog_ra", step_chain="on")
-    psi0 = _psi_init(cfg).astype(np.float32)
-    n = 3
-    ref = _run_chain_single(cfg, psi0, n)
-
-    mesh = make_mesh((4, 1), devices=jax.devices()[:4])
-    run = make_halo_run_fn(cfg, mesh, fused=True, chain=True)
-    s = shard_state(init_state(cfg, psi_init=psi0), mesh)
-    s = run(s, n)
-    for name, tol in (("zeta", 1e-5), ("psi", 5e-5), ("f1", 1e-5)):
-        a, b = np.asarray(getattr(s, name)), np.asarray(getattr(ref, name))
-        scale = np.abs(b).max()
-        np.testing.assert_allclose(a, b, rtol=0, atol=tol * scale,
-                                   err_msg=name)
-
-
-# ---------------------------------------------------------------------------
-# Round 4: 8192-class coverage (streaming x-stage), nx=1 specialization, and
-# the fused-path mesh routing (VERDICT round 3 items 2-4).
-
-
-def test_distributed_packed_inverter_nx1_matches_single_chip_pairx():
-    """On an (1, 1) mesh the distributed inverter must specialize to the
-    single-chip mirror-pair form EXACTLY (no companion, no transposes):
-    bitwise equality with PackedModalInverterPallasFFT(pair_x=True)."""
-    from jax.sharding import PartitionSpec as Pspec
-    from tpu_qg.ops.spectral import PackedModalInverterPallasFFT
-    from tpu_qg.parallel.packed import DistributedPackedInverter
-
-    M = P = 256
-    cfg = fused_cfg(M=M, P=P)
-    rng = np.random.default_rng(5)
-    zeta = np.asarray(rng.standard_normal((2, M, P)), np.float32)
-
-    single = PackedModalInverterPallasFFT(
-        M, P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-        cfg.back_projection_matrix(), interpret=True, pair_x=True)
-    assert single._pair
-    ref = np.asarray(single(zeta))
-
-    mesh = make_mesh((1, 1), devices=jax.devices()[:1])
-    dist = DistributedPackedInverter(
-        M, P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-        cfg.back_projection_matrix(), axis_x="x", interpret=True)
-    f = jax.jit(jax.shard_map(
-        dist, mesh=mesh, in_specs=(Pspec(None, "x", None),),
-        out_specs=Pspec(None, "x", None), check_vma=False))
-    np.testing.assert_array_equal(np.asarray(f(zeta)), ref)
-
-
-@pytest.mark.parametrize("nx", [1, 4])
-def test_distributed_packed_inverter_streaming(nx):
-    """The manual-DMA streaming x-stage (the 8192^2 form, here forced at a
-    small extent) matches the single-chip fused inverter."""
-    from jax.sharding import PartitionSpec as Pspec
-    from tpu_qg.ops.spectral import PackedModalInverterPallasFFT
-    from tpu_qg.parallel.packed import DistributedPackedInverter
-
-    M, P = 256, 512
-    cfg = fused_cfg(M=M, P=P)
-    rng = np.random.default_rng(7)
-    zeta = np.asarray(rng.standard_normal((2, M, P)), np.float32)
-
-    single = PackedModalInverterPallasFFT(
-        M, P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-        cfg.back_projection_matrix(), interpret=True)
-    ref = np.asarray(single(zeta))
-
-    mesh = make_mesh((nx, 1), devices=jax.devices()[:nx])
-    dist = DistributedPackedInverter(
-        M, P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-        cfg.back_projection_matrix(), axis_x="x", interpret=True,
-        stream_x=True)
-    assert dist._pfft._stream_x
-    f = jax.jit(jax.shard_map(
-        dist, mesh=mesh, in_specs=(Pspec(None, "x", None),),
-        out_specs=Pspec(None, "x", None), check_vma=False))
-    got = np.asarray(f(zeta))
-    scale = np.abs(ref).max()
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * scale)
-
-
-def test_pod_8192_fused_route():
-    """BASELINE config 5 (8192^2 pod) must resolve onto the fused path:
-    the gate admits every pod width, the auto mesh shape is (N, 1), and the
-    fused step/chain builders accept the preset (construct-only — an
-    interpret-mode 8192^2 step is not runnable in CI)."""
-    from tpu_qg.config import preset
-    from tpu_qg.parallel.mesh import preferred_mesh_shape
-    from tpu_qg.parallel.packed import distributed_packed_supported
-    from tpu_qg.parallel.stepper import (fused_halo_supported,
-                                         make_halo_step_fn)
-
-    cfg = preset("pod-8192")
-    for nx in (1, 2, 4, 8):
-        assert distributed_packed_supported(cfg.M, cfg.P, nx), nx
-    assert preferred_mesh_shape(cfg, 8) == (8, 1)
-    mesh = make_mesh(cfg=cfg)
-    assert mesh.devices.shape == (8, 1)
-    assert fused_halo_supported(cfg, mesh)
-    make_halo_step_fn(cfg, mesh, donate=False, fused=True)  # must not raise
-
-
-def test_generic_route_warns_on_tpu_shapes():
-    """A mesh shape that forces the generic XLA path while an (N, 1) mesh
-    would support the fused kernels must resolve fused=False on non-TPU
-    backends WITHOUT warning (CPU tests/oracles are expected to use the
-    generic path) — the loud warning is TPU-only, so just pin the
-    resolution semantics here."""
-    from tpu_qg.parallel.stepper import _resolve_fused
-
-    cfg = fused_cfg(M=256, P=256)
-    mesh = make_mesh((2, 4))
-    import warnings
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        assert _resolve_fused(cfg, mesh, "auto") is False  # no warning on CPU
-
-
-# ---------------------------------------------------------------------------
-# Paired-strip distributed inversion (round 4: 2 planes out + 2 back, no
-# mirror companion — parallel/paired.py).
-
-
-@pytest.mark.parametrize("nx,M,P,stream", [(2, 256, 512, None),
-                                           (4, 256, 1024, None),
-                                           (4, 256, 1024, True)])
-def test_paired_inverter_matches_single(nx, M, P, stream):
-    from jax.sharding import PartitionSpec as Pspec
-    from tpu_qg.ops.spectral import PackedModalInverterPallasFFT
-    from tpu_qg.parallel.paired import (PairedDistributedInverter,
-                                        paired_supported)
-
-    cfg = fused_cfg(M=M, P=P)
-    assert paired_supported(M, P, nx)
-    rng = np.random.default_rng(11)
-    zeta = np.asarray(rng.standard_normal((2, M, P)), np.float32)
-    single = PackedModalInverterPallasFFT(
-        M, P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-        cfg.back_projection_matrix(), interpret=True)
-    ref = np.asarray(single(zeta))
-    mesh = make_mesh((nx, 1), devices=jax.devices()[:nx])
-    dist = PairedDistributedInverter(
-        M, P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-        cfg.back_projection_matrix(), axis_x="x", interpret=True,
-        stream_x=stream)
-    f = jax.jit(jax.shard_map(
-        dist, mesh=mesh, in_specs=(Pspec(None, "x", None),),
-        out_specs=Pspec(None, "x", None), check_vma=False))
-    got = np.asarray(f(zeta))
-    scale = np.abs(ref).max()
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * scale)
-
-
-def test_fused_halo_step_routes_paired():
-    """A paired-eligible shape must route the fused sharded step through
-    the paired inverter and still match the single-chip fused step."""
-    from tpu_qg.parallel.paired import paired_supported
-    from tpu_qg.parallel.stepper import make_halo_step_fn
-
-    nx = 2
-    cfg = fused_cfg(M=256, P=512)
-    assert paired_supported(cfg.M, cfg.P, nx)
-    mesh = make_mesh((nx, 1), devices=jax.devices()[:nx])
-    psi0 = _psi_init(cfg).astype(np.float32)
-    ref = init_state(cfg, psi_init=psi0)
-    oracle = _unsharded_fused_step(cfg)
-    for _ in range(3):
-        ref = oracle(ref)
-    step = make_halo_step_fn(cfg, mesh, donate=False, fused=True)
-    s = shard_state(init_state(cfg, psi_init=psi0), mesh)
-    for _ in range(3):
-        s = step(s)
-    for name in ("zeta", "psi", "f1"):
-        a, b = np.asarray(getattr(s, name)), np.asarray(getattr(ref, name))
-        scale = np.abs(b).max()
-        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * scale,
-                                   err_msg=name)
-
-
-def test_paired_supported_gate():
-    from tpu_qg.parallel.paired import paired_supported
-    from tpu_qg.parallel.packed import distributed_packed_supported
-    # Pairs fit per chip at 2048^2 up to nx=8 (BlockSpec form).
-    for nx in (2, 4, 8):
-        assert paired_supported(2048, 2048, nx), nx
-    assert not paired_supported(2048, 2048, 16)   # 16*256 does not divide
-    # 8192^2 needs the STREAMING form, which is gated OFF on hardware
-    # evidence (results/stream_probe_8192_nx8.json: the paired streaming
-    # kernel exceeds VMEM at compile) — pods there ride the companion
-    # scheme, whose streaming kernel DID compile on the chip.
-    for nx in (2, 4, 8):
-        assert not paired_supported(8192, 8192, nx)
-        assert distributed_packed_supported(8192, 8192, nx)
-
-
-@pytest.mark.parametrize("G", [2, 4])
-def test_overlapped_transposes_match_blocking(G):
-    """The chunked (comm/compute-overlap-ready) transpose pipeline must be
-    pointwise identical to the single-all_to_all form — same kernels, same
-    global strip indices, only the collective granularity changes."""
-    from jax.sharding import PartitionSpec as Pspec
-    from tpu_qg.parallel.packed import DistributedPackedInverter
-
-    nx, M, P = 2, 256, 1024
-    cfg = fused_cfg(M=M, P=P)
-    rng = np.random.default_rng(13)
-    zeta = np.asarray(rng.standard_normal((2, M, P)), np.float32)
-    mesh = make_mesh((nx, 1), devices=jax.devices()[:nx])
-
-    def run(groups):
-        dist = DistributedPackedInverter(
-            M, P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-            cfg.back_projection_matrix(), axis_x="x", interpret=True,
-            overlap_groups=groups)
-        f = jax.jit(jax.shard_map(
-            dist, mesh=mesh, in_specs=(Pspec(None, "x", None),),
-            out_specs=Pspec(None, "x", None), check_vma=False))
-        return np.asarray(f(zeta))
-
-    np.testing.assert_array_equal(run(G), run(1))

@@ -22,7 +22,7 @@ class ModelConfig:
     """Two-layer quasi-geostrophic model configuration.
 
     Field-for-field parity with the reference's ``BaroclinicModel``
-    (reference: src/model.jl:12-30); TPU-specific knobs are appended at the end.
+    (reference: src/model.jl:12-30); numerics options are appended at the end.
     """
 
     # --- physical configuration (reference: src/model.jl:13-29) ---
@@ -41,8 +41,8 @@ class ModelConfig:
     R_d: float = 40.0 * KM      # Deformation radius [m].
     initial_kick: float = 1e-2  # Amplitude scale of the random initial psi.
 
-    # --- numerics / TPU knobs (new in this framework) ---
-    dtype: str = "float32"          # "float32" | "float64" (x64 needs jax_enable_x64)
+    # --- numerics options (new in this framework) ---
+    dtype: str = "float32"          # "float32" | "float64" (needs jax_enable_x64)
     # Reproduce the reference's inconsistent back-projection P_matrix(H_1, H_1)
     # (reference: src/model.jl:173 — quirk: P built with H_1 twice). Required for
     # trajectory equivalence whenever H_1 != H_2.
@@ -53,10 +53,6 @@ class ModelConfig:
     poisson_gauge: str = "zero_mean"
     n_layers: int = 2               # 2 = Phillips two-layer; 1 = barotropic.
     seed: int = 0                   # PRNG seed for the initial condition.
-    # Use the fused Pallas tendency kernel when running on TPU with supported
-    # shapes (P % 128 == 0, float32). Falls back to the roll-based XLA path
-    # otherwise; both produce identical results to roundoff.
-    use_pallas: bool = True
     # Time scheme: "euler_ab3" = the reference's Euler(2 steps)->AB3
     # (reference: src/model.jl:123-136); "leapfrog_ra" = leapfrog with a
     # Robert-Asselin filter (an extension beyond the reference, for the
@@ -73,54 +69,10 @@ class ModelConfig:
     # (reference: src/model.jl:41-42); "vortex" = Gaussian vortex dipole
     # (BASELINE config 1's barotropic vortex).
     ic_type: str = "random"
-    # Transform backend for the packed modal inversion: "xla" = jnp.fft (the
-    # oracle), "matmul" = the MXU matmul-factorized DFT (ops/matmul_fft.py),
-    # "pallas" = the fused Pallas factored DFT with the symbol stage folded
-    # into the inverse-x kernel (ops/pallas_fft.py; 1.875 vs 2.26 vs 2.6
-    # ms/step at 2048^2 on one v5e). "auto" = pallas when the hardware gate
-    # and VMEM bound admit it (models/core._PALLAS_FFT_IN_AUTO), else matmul
-    # when both extents factor MXU-friendly, else xla.
-    fft_impl: str = "auto"
-    # MXU strategy for the Pallas DFT kernels' large-radix stage:
-    # "highest" = full f32 emulation (6 MXU passes per real dot), "bf16x3" =
-    # manual 3-term bf16 decomposition (3 single-pass dots, ~2^-16 relative —
-    # the in-kernel analog of the matmul tier's Precision.HIGH). "auto" picks
-    # bf16x3 once hardware-gated in (models/core._BF16X3_IN_AUTO), else
-    # highest. Only consulted when the resolved fft_impl is "pallas".
-    fft_mxu: str = "auto"
-    # The y-fused three-kernel step chain (models/core.make_chain_fns): psi
-    # rides between steps in permuted y-spectral form and the step kernel
-    # does the inversion's y-transforms in-VMEM, making one model step
-    # exactly three kernel HBM passes. "auto" = on once hardware-gated
-    # (models/core._YFUSED_IN_AUTO) and supported; "on"/"off" force it.
-    step_chain: str = "auto"
-    # The mirror-pair fused x-kernel (pallas_fft._build_pair_x_kernel):
-    # forward-x, symbol stage, and inverse-x in ONE HBM pass per strip pair,
-    # so the spectrum W never round-trips HBM (packed inversion = 3 kernel
-    # passes; with the chain, one step = 2). "auto" = on once hardware-gated
-    # (models/core._PAIRX_IN_AUTO) and the VMEM bound admits the shape;
-    # "on"/"off" force it. Only consulted on the fused Pallas path.
-    fft_pairx: str = "auto"
-    # The monolithic single-pass inversion kernel
-    # (pallas_fft._build_mono_kernel): the whole packed field stays
-    # VMEM-resident through forward-y, the mirror-pair x-stage, and
-    # inverse-y — the entire zeta->psi inversion is ONE kernel HBM pass
-    # (4 planes of traffic instead of 12). Needs 2*M*P*4 bytes of VMEM
-    # (fits up to 2048^2-class shapes). "auto" = on once hardware-gated
-    # (models/core._MONO_IN_AUTO) and the VMEM bound admits the shape;
-    # "on"/"off" force it. Takes precedence over fft_pairx when active.
-    fft_mono: str = "auto"
-
-    # The one-launch whole-step kernel (v6, ops/pallas_fullstep.py):
-    # tendency + time update + the ENTIRE zeta->psi inversion in a single
-    # pallas_call — the packed field rides VMEM-resident from the stencil
-    # phase through forward-y, the mirror-pair x-stage, and inverse-y
-    # (14 planes of HBM traffic and ONE kernel launch per model step vs
-    # ~26 plane-passes and 4 launches for the default). 2048^2-class only
-    # (fullstep_fits). "auto" = on once hardware-gated
-    # (models/core._FULLSTEP_IN_AUTO); "on"/"off" force it. Takes
-    # precedence over step_chain/fft_pairx/fft_mono when active.
-    step_full: str = "auto"
+    # Transform backend for the packed modal inversion: "xla" = jnp.fft
+    # (cuFFT on the GPU; the default and the oracle), "matmul" = the
+    # matmul-factorized DFT (ops/matmul_fft.py), kept off the default route.
+    fft_impl: str = "xla"
 
     # Elliptic inversion algorithm for the SHARDED halo stepper
     # (parallel/stepper.py): "spectral" = transposed distributed FFT
@@ -131,7 +83,7 @@ class ModelConfig:
     # 5-point eigenvalues); multigrid is iterative — mg_cycles warm-started
     # V(2,2)-cycles per step (each ~0.15x residual contraction; the warm
     # start seeds from the previous step's psi). Single-device steps always
-    # use the spectral/Pallas route (fastest on one chip).
+    # use the spectral route.
     elliptic_impl: str = "spectral"
     mg_cycles: int = 4
     # Extrapolated warm start for the multigrid route (scan runs only,
@@ -155,21 +107,11 @@ class ModelConfig:
             raise ValueError(f"unsupported time_scheme {self.time_scheme!r}")
         if self.ic_type not in ("random", "vortex"):
             raise ValueError(f"unsupported ic_type {self.ic_type!r}")
-        if self.fft_impl not in ("auto", "xla", "matmul", "pallas"):
+        if self.fft_impl not in ("xla", "matmul"):
             raise ValueError(f"unsupported fft_impl {self.fft_impl!r}")
-        if self.fft_mxu not in ("auto", "highest", "bf16x3"):
-            raise ValueError(f"unsupported fft_mxu {self.fft_mxu!r}")
-        if self.step_chain not in ("auto", "on", "off"):
-            raise ValueError(f"unsupported step_chain {self.step_chain!r}")
         if self.elliptic_impl not in ("spectral", "multigrid"):
             raise ValueError(
                 f"unsupported elliptic_impl {self.elliptic_impl!r}")
-        if self.fft_pairx not in ("auto", "on", "off"):
-            raise ValueError(f"unsupported fft_pairx {self.fft_pairx!r}")
-        if self.fft_mono not in ("auto", "on", "off"):
-            raise ValueError(f"unsupported fft_mono {self.fft_mono!r}")
-        if self.step_full not in ("auto", "on", "off"):
-            raise ValueError(f"unsupported step_full {self.step_full!r}")
 
     # --- derived geometry ---
     @property
@@ -305,14 +247,12 @@ def preset(name: str) -> ModelConfig:
         ),
         # BASELINE config 5 on the communication-avoiding elliptic route:
         # distributed multigrid (O(halo) traffic/step) instead of the
-        # transposed-FFT inversion — the 8+-chip weak-scaling pick
-        # (results/scaling_projection.md round-5 MG table: 67% at 8 chips
-        # vs the spectral route's 36-45%, FLAT in chip count).
+        # transposed-FFT inversion.
         # mg_cycles=2 is the f32-noise-band fidelity point WITH the
         # extrapolated warm start (mg_extrapolate, default on): 5000-step
         # energy bias 2.1e-6 (results/mg_accuracy_256_5000_extrap.json)
         # vs 1.8e-4 without extrapolation; mg_cycles=1 trades a bounded
-        # ~3e-5 bias for ~94%.
+        # ~3e-5 bias for one V-cycle less per step.
         "pod-8192-mg": ModelConfig(
             M=8192, P=8192, Lx=4000.0 * KM, Ly=4000.0 * KM,
             dt=30.0, T=1.0 * DAY, dtype="float32",

@@ -138,8 +138,8 @@ class RunWriter:
         """Sharded full-state checkpoint: per-process shard files, no
         gather. Collective in the weak sense only (every process must call
         it so every shard lands on disk). Pod-scale counterpart of
-        ``write_checkpoint`` (round-4 VERDICT: the gathered path moves the
-        whole grid through host 0 — 256 MB/field at 8192² f32)."""
+        ``write_checkpoint`` (the gathered path moves the whole grid
+        through host 0 — 256 MB/field at 8192² f32)."""
         step = int(state.step)
         self._write_sharded("checkpoint", step, {
             "zeta": state.zeta, "psi": state.psi,
@@ -308,5 +308,7 @@ class RunReader:
         )
 
     def config(self) -> ModelConfig:
-        cfg_dict = dict(self.metadata["config"])
-        return ModelConfig(**cfg_dict)
+        # Fields of older versions that no longer exist are dropped.
+        names = {f.name for f in dataclasses.fields(ModelConfig)}
+        return ModelConfig(**{k: v for k, v in self.metadata["config"].items()
+                              if k in names})

@@ -1,6 +1,6 @@
 """Model layer: state container, tendencies, time stepping, elliptic inversion.
 
-TPU-native counterpart of the reference's src/model.jl.
+Counterpart of the reference's src/model.jl.
 """
 
 from .core import QGModel, State, init_state, make_step_fn  # noqa: F401

@@ -1,4 +1,4 @@
-"""Numerical kernels (the TPU-native counterpart of the reference's src/schemes/).
+"""Numerical kernels (the counterpart of the reference's src/schemes/).
 
 All ops here work on *interior-only* (M, P) arrays with implicit doubly-periodic
 boundary conditions via circular shifts — the reference's (M+2)x(P+2) ghost ring

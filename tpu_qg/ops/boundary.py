@@ -1,6 +1,6 @@
 """Ghost-ring utilities for reference-format interoperability.
 
-The TPU-native compute path stores interior-only (M, P) arrays (periodicity via
+The compute path stores interior-only (M, P) arrays (periodicity via
 circular shifts / halo exchange), so these helpers exist purely for I/O parity
 and for validating against the reference's (M+2)x(P+2) ghost-ring layout
 (reference: src/schemes/boundary_conditions.jl:1-22).

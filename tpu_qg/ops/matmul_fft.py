@@ -1,10 +1,9 @@
-"""MXU matmul-factorized DFT for the elliptic inversion.
+"""Matmul-factorized DFT for the elliptic inversion.
 
-XLA's TPU FFT thunk is a generic black box; the inversion only needs a
-*diagonalizing* transform, not the standard-order FFT. A radix-(N1, N2)
-Cooley-Tukey factorization (decimation n = n1 + N1*n2) expresses the N-point
-DFT as two batched small matmuls (MXU work) plus a twiddle multiply (VPU,
-fused by XLA):
+The inversion only needs a *diagonalizing* transform, not the standard-order
+FFT. A radix-(N1, N2) Cooley-Tukey factorization (decimation n = n1 + N1*n2)
+expresses the N-point DFT as two batched small matmuls plus a twiddle
+multiply (elementwise, fused by XLA):
 
     X[k2 + N2 k1] = sum_{n1} W_N^{n1 k2} W_{N1}^{n1 k1}
                     [ sum_{n2} x[n1 + N1 n2] W_{N2}^{n2 k2} ]
@@ -28,27 +27,20 @@ remains the default/oracle.
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import Array
 
-# Matmul precision for the DFT stages. HIGH = bf16x3 (near-f32 accuracy,
-# half the MXU passes of HIGHEST's true-f32 emulation; measured 2.38 vs 2.76
-# ms/inversion at 2048^2 — the difference vs HIGHEST on the solved field is
-# ~1e-6 relative, below the model's own f32 arithmetic noise). Overridable via
-# TPU_QG_MXU_PREC=default|high|highest.
-_PREC = {
-    "default": jax.lax.Precision.DEFAULT,
-    "high": jax.lax.Precision.HIGH,
-    "highest": jax.lax.Precision.HIGHEST,
-}[os.environ.get("TPU_QG_MXU_PREC", "high")]
+# Full float32 products: a lower precision lets the GPU run the DFT stages
+# in TF32 (about three decimal digits), which the 1/lambda Poisson symbol
+# then amplifies at low k.
+_PREC = jax.lax.Precision.HIGHEST
 
 
 def split_factor(N: int) -> tuple[int, int]:
-    """N = N1 * N2 with N1 the largest divisor <= 128 (MXU-sized)."""
+    """N = N1 * N2 with N1 the largest divisor <= 128."""
     best = 1
     for f in range(1, min(128, N) + 1):
         if N % f == 0:

@@ -7,10 +7,10 @@ scipy.sparse and exist so that
 
   * the structural property tests of the reference (symmetry, definiteness,
     exact small matrices — reference: src/test.jl:219-276) carry over, and
-  * the spectral TPU solver can be validated against a direct factorized solve
+  * the spectral solver can be validated against a direct factorized solve
     of the *same* discrete operator.
 
-They are never on the TPU hot path.
+They are never on the device hot path.
 """
 
 from __future__ import annotations

@@ -1,12 +1,18 @@
-"""Spectral (rfft2) elliptic inversion with the *discrete* 5-point eigenvalues.
+"""Spectral (fft2) elliptic inversion with the *discrete* 5-point eigenvalues.
 
-TPU-native replacement for the reference's pre-factorized sparse Cholesky
+Accelerator replacement for the reference's pre-factorized sparse Cholesky
 backsolves (reference: src/schemes/laplacian.jl:60-75, used per-step at
-src/model.jl:184-192). A direct sparse factorization is hostile to the TPU
-(serial triangular solves, scattered memory); the doubly-periodic 5-point
-Laplacian is diagonal in the DFT basis, so Poisson / modified-Helmholtz solves
-become one rfft2, a pointwise multiply, and one irfft2 — all MXU/VPU-friendly
-and O(N log N).
+src/model.jl:184-192). A direct sparse factorization is hostile to an
+accelerator (serial triangular solves, scattered memory); the doubly-periodic
+5-point Laplacian is diagonal in the DFT basis, so Poisson / modified-Helmholtz
+solves become one fft2, a pointwise multiply, and one ifft2 — O(N log N),
+and cuFFT on the GPU.
+
+The transforms are complex-to-complex throughout. On the H100 the float32
+real-to-complex pair (rfft2/irfft2) returned solutions whose high-wavenumber
+part was 30-50x less accurate than the complex pair's at 2048^2-8192^2
+(lap(psi) vs float64: 5.8e-5 vs 1.0e-6 at 8192^2), and the stencils of the
+next step amplify exactly that part; on the CPU the two agree.
 
 Crucially we divide by the eigenvalues of the *discrete* operator,
 
@@ -57,19 +63,32 @@ def periodic_laplacian_eigenvalues(M: int, P: int, dx: float) -> np.ndarray:
 
 
 def _eig_factors(M: int, P: int, dx: float):
-    """1-D eigenvalue factors lam_x (M,), lam_y (P//2+1,) of the discrete
-    Laplacian on the rfft grid — kept 1-D so the compiled program embeds only
-    O(M + P) constants; the 2-D symbol is formed symbolically at trace time
-    (a full (M, P/2+1) constant at 8192^2 is ~270 MB of HLO)."""
+    """1-D eigenvalue factors lam_x (M,), lam_y (P,) of the discrete
+    Laplacian on the full fft grid — kept 1-D so the compiled program embeds
+    only O(M + P) constants; the 2-D symbol is formed symbolically at trace
+    time (a full (M, P) constant at 8192^2 is ~270 MB of HLO)."""
     k = np.arange(M)
-    l = np.arange(P // 2 + 1)
+    l = np.arange(P)
     lam_x = (2.0 * np.cos(2.0 * np.pi * k / M) - 2.0) / (dx * dx)
     lam_y = (2.0 * np.cos(2.0 * np.pi * l / P) - 2.0) / (dx * dx)
     return lam_x, lam_y
 
 
+def _fft2(f: Array) -> Array:
+    """Complex 2-D FFT over the last two axes, as two 1-D transforms: the
+    same transform as ``jnp.fft.fft2``, in the form XLA's CPU backend also
+    runs under GSPMD sharding (its fused 2-D FFT there rejects the
+    partitioned layout)."""
+    return jnp.fft.fft(jnp.fft.fft(f, axis=-1), axis=-2)
+
+
+def _ifft2(f_hat: Array) -> Array:
+    """Inverse of ``_fft2``."""
+    return jnp.fft.ifft(jnp.fft.ifft(f_hat, axis=-2), axis=-1)
+
+
 def _inv_symbol_2d(lam_x, lam_y, alpha: float, dtype) -> Array:
-    """Symbolic (M, P//2+1) inverse symbol 1/(lam + alpha); for the singular
+    """Symbolic (M, P) inverse symbol 1/(lam + alpha); for the singular
     alpha == 0 case the (0, 0) entry is set to 0 (zero-mean gauge)."""
     lam = (jnp.asarray(lam_x, dtype)[:, None]
            + jnp.asarray(lam_y, dtype)[None, :] + jnp.asarray(alpha, dtype))
@@ -96,12 +115,10 @@ class HelmholtzSolver:
 
     def __call__(self, f: Array) -> Array:
         """Solve (lap + alpha) u = f for u on an interior-only (..., M, P) array."""
-        f_hat = jnp.fft.rfft2(f, axes=(-2, -1))
+        f_hat = _fft2(f)
         inv = _inv_symbol_2d(self.lam_x, self.lam_y, self.alpha,
                              f_hat.real.dtype)
-        u_hat = f_hat * inv
-        u = jnp.fft.irfft2(u_hat, s=(self.M, self.P), axes=(-2, -1))
-        u = u.astype(f.dtype)
+        u = _ifft2(f_hat * inv).real.astype(f.dtype)
         if self.alpha == 0.0 and self.gauge == "pin":
             # Emulate the reference's pinned-point gauge (psi[0, 0] == 0).
             u = u - u[..., 0:1, 0:1]
@@ -110,8 +127,8 @@ class HelmholtzSolver:
 
 class BatchedModalSolver:
     """Solve K independent (lap + alpha_k) u_k = f_k problems in ONE
-    rfft2/irfft2 pair over a stacked (K, M, P) input — halves transform count
-    vs per-mode HelmholtzSolver calls in the two-layer inversion
+    fft2/ifft2 pair over a stacked (K, M, P) input — one batched transform
+    instead of per-mode HelmholtzSolver calls in the two-layer inversion
     (reference counterpart: the two backsolves in src/model.jl:184-192)."""
 
     def __init__(self, M: int, P: int, dx: float, alphas, gauge: str = "zero_mean"):
@@ -121,13 +138,11 @@ class BatchedModalSolver:
         self.lam_x, self.lam_y = _eig_factors(M, P, dx)
 
     def __call__(self, f: Array) -> Array:
-        f_hat = jnp.fft.rfft2(f, axes=(-2, -1))
+        f_hat = _fft2(f)
         inv = jnp.stack([
             _inv_symbol_2d(self.lam_x, self.lam_y, a, f_hat.real.dtype)
             for a in self.alphas])
-        u_hat = f_hat * inv
-        u = jnp.fft.irfft2(u_hat, s=(self.M, self.P), axes=(-2, -1))
-        u = u.astype(f.dtype)
+        u = _ifft2(f_hat * inv).real.astype(f.dtype)
         if self.gauge == "pin":
             for i, a in enumerate(self.alphas):
                 if a == 0.0:
@@ -150,10 +165,9 @@ class PackedModalInverter:
         V  = A(k) W + B(k) conj(W(-k))
         psi_1 + i psi_2 = ifft2(V)
 
-    with precomputed complex symbols A, B. Versus the batched-rfft2 solver
+    with precomputed complex symbols A, B. Versus the batched solver
     this removes the physical-space modal projection and back-projection
-    passes entirely (and the Pallas kernel's separate ``modes`` output), and
-    replaces two half-spectrum transforms per direction with one full complex
+    passes entirely, and replaces two half-spectrum transforms per direction with one full complex
     transform (identical flop count, fewer dispatches).
 
     Derivation: with Z1 = (W + W̄⁻)/2, Z2 = -i(W - W̄⁻)/2 (W̄⁻(k) := conj(W(-k)))
@@ -172,12 +186,9 @@ class PackedModalInverter:
                  P_inv, P_back):
         self.M, self.P = M, P
         self.alpha2 = alpha2
-        # Full-grid (not rfft) 1-D eigenvalue factors; 2-D symbols are formed
-        # symbolically at trace time (O(M + P) constants in the HLO).
-        k = np.arange(M)
-        l = np.arange(P)
-        self.lam_x = (2.0 * np.cos(2.0 * np.pi * k / M) - 2.0) / (dx * dx)
-        self.lam_y = (2.0 * np.cos(2.0 * np.pi * l / P) - 2.0) / (dx * dx)
+        # 1-D eigenvalue factors; 2-D symbols are formed symbolically at
+        # trace time (O(M + P) constants in the HLO).
+        self.lam_x, self.lam_y = _eig_factors(M, P, dx)
         (q11, q12), (q21, q22) = P_inv
         (p11, p12), (p21, p22) = P_back
         u = p11 + 1j * p21
@@ -211,13 +222,13 @@ class PackedModalInverter:
         return jnp.stack([v.real, v.imag]).astype(zeta.dtype)
 
 
-class PackedModalInverterMXU(PackedModalInverter):
+class PackedModalInverterMatmul(PackedModalInverter):
     """PackedModalInverter with the fft2/ifft2 pair replaced by the
     matmul-factorized DFT (tpu_qg.ops.matmul_fft): the transforms become
-    batched MXU matmuls + twiddles and the spectral order stays permuted end
+    batched matmuls + twiddles and the spectral order stays permuted end
     to end — the symbols A, B are simply evaluated at the permuted
     frequencies, and conj(W(-k)) is structured flips on the (k1, k2) view.
-    Speed alternative for TPU; same math and gauge as the parent."""
+    Off the default route; same math and gauge as the parent."""
 
     def __init__(self, M: int, P: int, dx: float, alpha2: float,
                  P_inv, P_back):
@@ -235,84 +246,6 @@ class PackedModalInverterMXU(PackedModalInverter):
         W_rev = jnp.conj(self._fft2.negate_spectrum(W))
         v = self._fft2.inverse(A * W + B * W_rev)
         return jnp.stack([v.real, v.imag]).astype(zeta.dtype)
-
-
-class PackedModalInverterPallasFFT(PackedModalInverterMXU):
-    """PackedModalInverter with the transforms done by the fused Pallas
-    factored-DFT (tpu_qg.ops.pallas_fft): each 1-D transform is a single
-    VMEM-resident kernel (small stage + twiddle + MXU stage in one HBM
-    read/write), and the field stays PLANAR float32 end to end — the packed
-    (zeta_1, zeta_2) stack IS the planar complex field, so no complex dtype,
-    no pack/unpack, appears anywhere. Same permuted spectral order, symbols,
-    and zero-mean gauge as the MXU parent.
-
-    When the VMEM bound admits it (``fuse_symbols=True``, the default), the
-    spectral stage V = A W + B conj(W(-k)) — including the negate-spectrum
-    permutation — is fused into the inverse-x kernel, so the whole inversion
-    is exactly FOUR kernel HBM passes; otherwise the symbol stage runs at the
-    XLA level between the kernels (kept as the equality oracle)."""
-
-    def __init__(self, M: int, P: int, dx: float, alpha2: float,
-                 P_inv, P_back, interpret: bool = False,
-                 fuse_symbols: bool = True, mxu: str = "highest",
-                 pair_x: bool = False, mono: bool = False):
-        super().__init__(M, P, dx, alpha2, P_inv, P_back)
-        from .pallas_fft import (PlanarFFT2, mono_fits, pair_x_fits,
-                                 symbol_inverse_fits)
-        self._pfft = PlanarFFT2(M, P, interpret=interpret, mxu=mxu)
-        self._fuse = fuse_symbols and symbol_inverse_fits(M, P)
-        # Mirror-pair fused x-kernel: the whole inversion in THREE kernel
-        # passes (y-forward, pair-x, y-inverse) — W never touches HBM.
-        self._pair = self._fuse and pair_x and pair_x_fits(M, P)
-        # The manual-DMA streaming pair form could keep the inversion at
-        # THREE passes where the BlockSpec pair kernel does not fit, but it
-        # MEASURES SLOWER than the 4-pass BlockSpec route (r4 phase J:
-        # 2.765e9 vs 3.255e9 gps at 4096^2 — the two pipelined passes it
-        # replaces beat one single-buffered serialized pass; same lesson as
-        # mono/fullstep) and its Mosaic stack exceeds the 112 MB scoped
-        # limit at 8192^2 (114.97M measured at compile). Stays OFF; the
-        # kernel serves the distributed x-stage (its real user) and remains
-        # testable via the attribute (tests force it at small extents).
-        self._pair_stream = False
-        # Monolithic kernel: the whole inversion in ONE kernel HBM pass
-        # (field VMEM-resident across all three stages).
-        self._mono = self._fuse and mono and mono_fits(M, P)
-        if self._fuse:
-            # Hashable scalar constants from which the kernel rebuilds the
-            # symbols per block (pallas_fft._symbols_for_block).
-            from .matmul_fft import split_factor
-            self._sym_consts = (
-                split_factor(M)[1], split_factor(P)[1],
-                1.0 / (dx * dx), float(alpha2),
-                self.a1, self.a2, self.b1, self.b2)
-
-    def __call__(self, zeta: Array) -> Array:
-        if self._mono:
-            return self._pfft.mono_invert(
-                zeta, self._sym_consts).astype(zeta.dtype)
-        if self._pair:
-            Zy = self._pfft._call_y(zeta, False)
-            v = self._pfft._call_y(
-                self._pfft.pair_x_symbols(Zy, self._sym_consts), True)
-            return v.astype(zeta.dtype)
-        if self._pair_stream:
-            Zy = self._pfft._call_y(zeta, False)
-            v = self._pfft._call_y(
-                self._pfft.stream_pair_symbols(Zy, self._sym_consts), True)
-            return v.astype(zeta.dtype)
-        W = self._pfft.forward(zeta)                   # planar (2, M, P)
-        if self._fuse:
-            v = self._pfft.inverse_with_symbols(W, self._sym_consts)
-            return v.astype(zeta.dtype)
-        A, B = self._symbols(zeta.dtype)
-        Wn = self._fft2.negate_spectrum(W)             # W(-k), per plane
-        Wr, Wi = W[0], W[1]
-        Wr2, Wi2 = Wn[0], Wn[1]
-        # V = A W + B conj(W(-k)), expanded on the planes.
-        Vr = A.real * Wr - A.imag * Wi + B.real * Wr2 + B.imag * Wi2
-        Vi = A.imag * Wr + A.real * Wi + B.imag * Wr2 - B.real * Wi2
-        v = self._pfft.inverse(jnp.stack([Vr, Vi]))
-        return v.astype(zeta.dtype)
 
 
 @functools.partial(jax.jit, static_argnames=("M", "P", "dx", "alpha", "gauge"))

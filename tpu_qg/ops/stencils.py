@@ -1,16 +1,14 @@
 """Periodic finite-difference stencils as circular-shift expressions.
 
-TPU-native re-design of the reference's ghost-ring stencil sweeps:
+JAX re-design of the reference's ghost-ring stencil sweeps:
 - 5-point Laplacian            (reference: src/schemes/laplacian.jl:15-27)
 - centred x-difference         (reference: src/model.jl:64-80)
 - Arakawa (1966) Jacobian      (reference: src/schemes/arakawa.jl:7-62)
 
 The reference allocates a fresh array per op and runs serial @inbounds loops over
 the interior, then refreshes a ghost ring. Here every stencil is a pure jnp
-expression over circular shifts of interior-only (M, P) arrays: XLA fuses the
-shift+arith chains into a handful of VPU passes, and the Pallas path
-(tpu_qg.ops.pallas_tendency) fuses the entire two-layer tendency into a single
-HBM round-trip. On the interior, results are bit-identical in float64 to the
+expression over circular shifts of interior-only (M, P) arrays, and XLA fuses
+the shift+arith chains into a handful of elementwise kernels. On the interior, results are bit-identical in float64 to the
 reference's ghost-ring formulation because the ghost cells always hold exact
 periodic copies of the interior.
 

@@ -2,7 +2,7 @@
 
 The reference is a single-core sequential program with no parallelism of any
 kind (SURVEY.md section 2, parallelism inventory). This package is the
-TPU-native counterpart created from scratch: 2-D spatial domain decomposition
+counterpart created from scratch: 2-D spatial domain decomposition
 of the (M, P) grid over a ``jax.sharding.Mesh`` — the structural analog of
 DP+SP for this workload — with two implementations:
 

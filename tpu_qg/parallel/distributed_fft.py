@@ -1,6 +1,6 @@
 """Distributed spectral Helmholtz/Poisson solve via transposed FFTs.
 
-The multi-chip counterpart of tpu_qg.ops.spectral (which itself replaces the
+The multi-device counterpart of tpu_qg.ops.spectral (which itself replaces the
 reference's cached sparse Cholesky backsolves, reference:
 src/schemes/laplacian.jl:60-75): on an (nx, ny) device mesh holding (m, p)
 tiles of the global (M, P) grid, the solve is
@@ -13,10 +13,12 @@ tiles of the global (M, P) grid, the solve is
      (same eigenvalues as tpu_qg.ops.spectral), local IFFT along x
   5. inverse transposes of (3) and (1), local IFFT along y
 
-All data movement is all_to_all over ICI; all compute is local FFTs — the
-standard transposed distributed FFT (SURVEY.md section 7.7). Complex (full)
-FFTs are used along y so chunk counts divide evenly; the rfft optimization is
-a possible later bandwidth saving.
+All data movement is all_to_all over the device interconnect (NCCL over
+NVLink on a GPU host); all compute is local FFTs — the standard transposed
+distributed FFT (SURVEY.md section 7.7). The transforms are complex to
+complex, as in tpu_qg.ops.spectral (its module docstring says why): the
+column strips divide evenly, at twice the bytes a real-to-complex y
+transform would move through the big xy all_to_all.
 
 Must be called inside shard_map over a mesh with axes (axis_x, axis_y).
 """
@@ -28,6 +30,12 @@ from typing import Sequence
 import jax.numpy as jnp
 import numpy as np
 from jax import Array, lax
+
+
+def transposes_divide(M: int, P: int, nx: int, ny: int) -> bool:
+    """Whether an (nx, ny) mesh admits the transposes above: the tile rows
+    (M/nx) split over the y-ring and P splits over all nx*ny devices."""
+    return M % nx == 0 and (M // nx) % ny == 0 and P % (nx * ny) == 0
 
 
 class DistributedHelmholtzSolver:
@@ -46,16 +54,11 @@ class DistributedHelmholtzSolver:
         self.lam_y = (2.0 * np.cos(2.0 * np.pi * l / P) - 2.0) / (dx * dx)
 
     def _inv_symbol(self, col_offset, width: int, dtype) -> Array:
-        """(K, M, width) inverse symbol for the local column strip starting at
-        traced ``col_offset`` (rfft frequency indexing; columns beyond P//2
-        are zero-padded data, so their lam value is irrelevant but must keep
-        dynamic_slice in bounds)."""
+        """(K, M, width) inverse symbol for the local column strip starting
+        at traced ``col_offset``."""
         lam_x = jnp.asarray(self.lam_x, dtype)[None, :, None]
-        lam_y_full = jnp.concatenate([
-            jnp.asarray(self.lam_y, dtype),
-            jnp.full((self.P,), 1.0, dtype),  # padding guard
-        ])
-        lam_y = lax.dynamic_slice(lam_y_full, (col_offset,), (width,))[None, None, :]
+        lam_y = lax.dynamic_slice(jnp.asarray(self.lam_y, dtype),
+                                  (col_offset,), (width,))[None, None, :]
         alphas = jnp.asarray(self.alphas, dtype)[:, None, None]
         denom = lam_x + lam_y + alphas
 
@@ -73,38 +76,33 @@ class DistributedHelmholtzSolver:
         n = nx * ny
         K, m, p = f.shape
         assert K == len(self.alphas)
-        assert m * nx == self.M and p * ny == self.P
-        assert m % ny == 0 and self.P % n == 0, (
-            "tile rows must divide by ny and P by nx*ny for the transposes")
+        if not (m * nx == self.M and p * ny == self.P
+                and transposes_divide(self.M, self.P, nx, ny)):
+            raise ValueError(
+                f"grid ({self.M}, {self.P}) on mesh ({nx}, {ny}): tile rows "
+                "must divide by ny and P by nx*ny for the transposes")
 
         # (1) y-transpose: (K, m, p) -> (K, m/ny, P) — moves REAL data.
         g = f
         if ny > 1:
             g = lax.all_to_all(g, self.ay, split_axis=1, concat_axis=2, tiled=True)
-        # (2) real FFT along y: (K, m/ny, Pk), Pk = P//2+1. Zero-pad the
-        # frequency axis to a multiple of n so the transpose chunks evenly —
-        # the rfft halves the bytes moved by the big xy all_to_all vs a full
-        # complex FFT.
-        gh = jnp.fft.rfft(g, axis=2)
-        Pk = self.P // 2 + 1
-        Pk_pad = -(-Pk // n) * n if n > 1 else Pk
-        if Pk_pad != Pk:
-            gh = jnp.pad(gh, ((0, 0), (0, 0), (0, Pk_pad - Pk)))
-        # (3) xy-transpose: (K, m/ny, Pk_pad) -> (K, M, Pk_pad/n)
+        # (2) FFT along y: (K, m/ny, P) complex.
+        gh = jnp.fft.fft(g, axis=2)
+        # (3) xy-transpose: (K, m/ny, P) -> (K, M, P/n)
         if n > 1:
             gh = lax.all_to_all(gh, (self.ax, self.ay), split_axis=2,
                                 concat_axis=1, tiled=True)
         # (4) FFT along x, apply inverse symbol, IFFT along x.
-        w = Pk_pad // n
+        w = self.P // n
         q = lax.axis_index((self.ax, self.ay)) if n > 1 else 0
         uh = jnp.fft.fft(gh, axis=1)
         uh = uh * self._inv_symbol(q * w, w, f.dtype)
         u = jnp.fft.ifft(uh, axis=1)
-        # (5) inverse transposes, drop the frequency padding, inverse rfft.
+        # (5) inverse transposes, inverse FFT along y.
         if n > 1:
             u = lax.all_to_all(u, (self.ax, self.ay), split_axis=1,
                                concat_axis=2, tiled=True)
-        u = jnp.fft.irfft(u[:, :, :Pk], n=self.P, axis=2)
+        u = jnp.fft.ifft(u, axis=2).real
         if ny > 1:
             u = lax.all_to_all(u, self.ay, split_axis=2, concat_axis=1, tiled=True)
         return u.astype(f.dtype)

@@ -4,7 +4,7 @@ The "let XLA insert collectives" path (the scaling-book recipe): the step
 function is written on global (L, M, P) arrays exactly as in
 tpu_qg.models.core; we annotate the spatial axes with a 2-D mesh sharding and
 jit. Under SPMD partitioning XLA lowers the stencil rolls to collective
-permutes of 1-cell boundary slabs over ICI and partitions/gathers the FFTs for
+permutes of 1-cell boundary slabs and partitions/gathers the FFTs for
 the elliptic solve. Always correct; the hand-tuned shard_map halo path
 (tpu_qg.parallel.halo) exists for when the partitioner's choices are not
 optimal.
@@ -41,7 +41,7 @@ def make_sharded_step_fn(cfg: ModelConfig, mesh: Mesh, donate: bool = True):
     """Jitted single-step function with mesh-sharded inputs/outputs.
 
     Input buffers are donated (the state is dead after the step) so XLA can
-    update in place — the multi-chip analog of the reference's in-place
+    update in place — the multi-device analog of the reference's in-place
     ``store_new_state!`` ring buffer (reference: src/model.jl:101-106) without
     any aliasing hazards.
     """

@@ -19,22 +19,19 @@ def _factor2(n: int) -> Tuple[int, int]:
 
 
 def preferred_mesh_shape(cfg, n_devices: int) -> Tuple[int, int]:
-    """Mesh shape for ``n_devices`` given the model config: (N, 1) whenever
-    the Pallas-fused sharded path supports that shape (the fused kernels
-    need rows-sharded, y-local layouts — tpu_qg.parallel.stepper
-    ``fused_halo_supported``), else the most-square split.
+    """Mesh shape for ``n_devices`` given the model config, from the
+    algorithm alone.
 
-    Round-3 VERDICT item 3: ``make_mesh`` defaulted to most-square (8
-    devices -> 4x2), silently routing pod presets off the fused kernels
-    even where an (8, 1) mesh would have kept them on it. The support
-    predicate is shared with the fused gate itself
-    (``stepper.fused_shape_supported`` — ADVICE r4) so the two cannot
-    diverge.
+    The spectral route's transposed FFT needs ``transposes_divide``; on an
+    (N, 1) mesh it makes one all_to_all pair per solve instead of two, so
+    (N, 1) is taken whenever the grid admits it. Otherwise, and for the
+    multigrid route (halo traffic only, least for the shortest tile
+    perimeter), the most-square split.
     """
-    from .stepper import fused_shape_supported
+    from .distributed_fft import transposes_divide
 
-    if (cfg is not None and cfg.use_pallas
-            and fused_shape_supported(cfg, n_devices, 1)):
+    if (cfg is not None and cfg.elliptic_impl == "spectral"
+            and transposes_divide(cfg.M, cfg.P, n_devices, 1)):
         return (n_devices, 1)
     return _factor2(n_devices)
 
@@ -44,9 +41,8 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
               devices=None, cfg=None) -> Mesh:
     """Build a 2-D ('x', 'y') device mesh over the available devices.
 
-    ``shape=None`` uses all devices — in the fused-path-preferred (N, 1)
-    arrangement when a ``cfg`` is given and supports it
-    (``preferred_mesh_shape``), else most-square. An explicit shape smaller
+    ``shape=None`` uses all devices, shaped by ``preferred_mesh_shape``
+    when a ``cfg`` is given, else most-square. An explicit shape smaller
     than the device count takes the FIRST nx*ny devices (e.g. ``--mesh 4,1``
     on an 8-device host). Axis 'x' shards the M (first spatial) dimension,
     'y' the P dimension.

@@ -1,20 +1,18 @@
 """Distributed geometric multigrid: the communication-avoiding elliptic solve.
 
-Round-4 scaling projection (results/scaling_projection.md): the transposed-
-FFT inversion's all_to_alls own the multi-chip budget and cap weak scaling
-at ~29-45% at 8 chips; >= 80% needs a solve whose traffic is O(halo), not
-O(grid). This module is that solve: the V-cycle of tpu_qg.ops.multigrid
+The transposed-FFT inversion moves the whole field through all_to_alls
+every step; a solve whose traffic is O(halo), not O(grid), avoids that.
+This module is that solve: the V-cycle of tpu_qg.ops.multigrid
 run on shard_map-local tiles with 1-cell ppermute halo exchanges
 (tpu_qg.parallel.halo) at every level, and a tiny gathered coarse grid
 solved redundantly on every device (deterministic replica — no broadcast).
 
 Per-V-cycle traffic per device at level 0 extents (m_loc, p_loc):
 roughly (nu1 + nu2 + 2) halo exchanges of perimeter slabs, summed over
-levels (factor ~4/3) — at 8192^2 on 8 chips that is ~2 MB/cycle/device vs
-the transposed FFT's ~192 MB/step/device of all_to_all payload. Unlike the
-fused FFT path (parallel/packed.py, (N, 1) meshes only) this works on ANY
-(nx, ny) mesh: only tile-evenness gates coarsening, and the gather cutoff
-absorbs ragged cases.
+levels (factor ~4/3) — at 8192^2 on 8 devices that is ~2 MB/cycle/device vs
+the transposed FFT's ~192 MB/step/device of all_to_all payload. It works on
+ANY (nx, ny) mesh: only tile-evenness gates coarsening, and the gather
+cutoff absorbs ragged cases.
 
 Reference counterpart: the per-step elliptic solve
 (src/schemes/laplacian.jl:60-75 via src/model.jl:184-192) — same 5-point
@@ -31,7 +29,7 @@ import numpy as np
 from jax import Array, lax
 
 from ..ops.multigrid import (_coarse_spectral_solve, apply_helmholtz,
-                             jacobi_smooth, prolong_bilinear,
+                             jacobi_smooth, modal_mix, prolong_bilinear,
                              restrict_full_weighting_padded)
 from .halo import exchange_halo, make_padded_shift
 
@@ -42,7 +40,7 @@ class DistributedMultigridSolver:
     """shard_map body solving (lap_5p + alpha_k) u_k = f_k on local
     (K, M/nx, P/ny) tiles of a (axis_x, axis_y) mesh.
 
-    Usage (mirrors DistributedPackedInverter):
+    Usage:
 
         solve = jax.jit(jax.shard_map(
             DistributedMultigridSolver(M, P, dx, (0.0, S_eig), nx, ny),
@@ -147,7 +145,7 @@ class DistributedMultigridInverter:
     local P^{-1} projection, distributed batched V-cycles (Poisson +
     Helmholtz share every halo exchange), local back-projection.
     Drop-in distributed counterpart of MultigridModalInverter; works on
-    any (nx, ny) mesh, unlike the (N, 1)-only transposed-FFT fast path."""
+    any (nx, ny) mesh."""
 
     def __init__(self, M: int, P: int, dx: float, alpha2: float,
                  P_inv, P_back, nx: int, ny: int,
@@ -165,12 +163,7 @@ class DistributedMultigridInverter:
 
     def __call__(self, zeta: Array,
                  psi_prev: Optional[Array] = None) -> Array:
-        q = jnp.asarray(self.P_inv, zeta.dtype)
-        b = jnp.asarray(self.P_back, zeta.dtype)
-        modes_rhs = jnp.einsum("ab,bmp->amp", q, zeta)
-        x0 = None
-        if psi_prev is not None:
-            bi = jnp.asarray(self.P_back_inv, zeta.dtype)
-            x0 = jnp.einsum("ab,bmp->amp", bi, psi_prev)
-        modes = self.solver(modes_rhs, x0=x0)
-        return jnp.einsum("ab,bmp->amp", b, modes)
+        x0 = (None if psi_prev is None
+              else modal_mix(self.P_back_inv, psi_prev))
+        modes = self.solver(modal_mix(self.P_inv, zeta), x0=x0)
+        return modal_mix(self.P_back, modes)

@@ -15,7 +15,8 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..config import ModelConfig
-from ..models.core import State
+from ..models.core import State, scheme_update
+from ..ops.multigrid import modal_mix
 from ..ops.stencils import (arakawa_J_generic, centered_diff_x_generic,
                             laplace_5p_generic)
 from .distributed_fft import DistributedHelmholtzSolver
@@ -130,273 +131,21 @@ def _local_wind_forcing(cfg: ModelConfig, dtype, ay: str):
     return lax.dynamic_slice(full, (j * p_local,), (p_local,))[None, :]
 
 
-def fused_shape_supported(cfg: ModelConfig, nx: int, ny: int) -> bool:
-    """Shape/config predicate shared by ``fused_halo_supported`` and
-    ``mesh.preferred_mesh_shape`` (ADVICE r4: the two previously
-    re-implemented the same condition list and could diverge): (nx, 1)
-    arrangement (rows sharded, y local — the layout the fused kernels
-    need), two-layer zero-mean-gauge f32, the sharded streamed step
-    kernel's tile gate, and the distributed packed inverter's transpose
-    divisibility."""
-    if ny != 1 or cfg.n_layers != 2 or cfg.poisson_gauge != "zero_mean":
-        return False
-    if cfg.elliptic_impl != "spectral":
-        return False
-    if jnp.dtype(cfg.dtype).itemsize != 4 or cfg.M % nx != 0:
-        return False
-    from ..ops.pallas_tendency import sharded_pallas_supported
-    from .packed import distributed_packed_supported
-    return (sharded_pallas_supported(cfg.n_layers, cfg.M // nx, cfg.P, 4)
-            and distributed_packed_supported(cfg.M, cfg.P, nx))
-
-
-def fused_halo_supported(cfg: ModelConfig, mesh: Mesh) -> bool:
-    """Gate for the Pallas-fused sharded step on this mesh
-    (see ``fused_shape_supported``)."""
-    nx, ny = mesh.devices.shape
-    return fused_shape_supported(cfg, nx, ny)
-
-
-def _resolve_fused(cfg: ModelConfig, mesh: Mesh, fused) -> bool:
-    if fused == "auto":
-        # Production default: the fused local step on real TPU whenever the
-        # shapes admit it (per-chip rate then matches the single-chip fused
-        # path — the kernels are identical); generic XLA stencils elsewhere.
-        use = (cfg.use_pallas and jax.default_backend() == "tpu"
-               and fused_halo_supported(cfg, mesh))
-        if not use and cfg.use_pallas and jax.default_backend() == "tpu":
-            # A TPU run landing on the generic XLA path is ~3x slower per
-            # chip; round 3 let pod presets do this SILENTLY (VERDICT item
-            # 3). Say so, and say what would fix it.
-            import warnings
-            n = mesh.devices.size
-            hint = ""
-            if mesh.devices.shape[1] != 1 and fused_halo_supported(
-                    cfg, Mesh(mesh.devices.reshape(n, 1), mesh.axis_names)):
-                hint = (f" — an ({n}, 1) mesh WOULD support the fused "
-                        f"kernels; pass --mesh {n},1 (or let make_mesh "
-                        "pick the shape from the config)")
-            warnings.warn(
-                f"sharded step for M={cfg.M}, P={cfg.P} on mesh "
-                f"{mesh.devices.shape} is using the generic XLA stencil + "
-                f"jnp.fft path, NOT the fused Pallas kernels{hint}",
-                stacklevel=3)
-        return use
-    if fused:
-        assert fused_halo_supported(cfg, mesh), (
-            "fused sharded step unsupported for this config/mesh "
-            f"(M={cfg.M}, P={cfg.P}, mesh={mesh.devices.shape})")
-    return bool(fused)
-
-
-def _scheme_update(cfg: ModelConfig, zeta, f1, f2, step, tend):
-    """Time-scheme update on any window: returns (zeta_new, f1_new, f2_new)
-    from the tendency (euler->AB3 branch-free form, or leapfrog-RA;
-    reference: src/model.jl:123-136). Shared by the XLA local step and the
-    2-D fused step's y-boundary-column correction."""
-    dt = cfg.dt
-    if cfg.time_scheme == "leapfrog_ra":
-        zeta_prev_f = jnp.where(step == 0, zeta, f1)
-        leap = zeta_prev_f + (2.0 * dt) * tend
-        euler0 = zeta + dt * tend
-        zeta_new = jnp.where(step == 0, euler0, leap)
-        zeta_filt = zeta + cfg.ra_filter * (
-            zeta_prev_f - 2.0 * zeta + zeta_new)
-        return zeta_new, zeta_filt, f2
-    ab3 = dt * ((23.0 / 12.0) * tend
-                - (16.0 / 12.0) * f1
-                + (5.0 / 12.0) * f2)
-    euler = dt * tend
-    update = jnp.where(step < 2, euler, ab3)
-    return zeta + update, tend, f1
-
-
-def fused_2d_shape_supported(cfg: ModelConfig, nx: int, ny: int) -> bool:
-    """Gate for the 2-D-mesh fused step (round-4 VERDICT item 3): two-layer
-    zero-mean f32 without wind forcing (the kernel's in-kernel wind rows
-    assume y-complete columns), the sharded streamed kernel's tile gate at
-    the LOCAL (m, p) extents, and the 2-D packed inverter's transpose
-    divisibility."""
-    from ..ops.pallas_tendency import sharded_pallas_supported
-    from .packed import distributed_packed_2d_supported
-    if cfg.n_layers != 2 or cfg.poisson_gauge != "zero_mean":
-        return False
-    if cfg.elliptic_impl != "spectral" or cfg.wind_tau0 != 0.0:
-        return False
-    if jnp.dtype(cfg.dtype).itemsize != 4:
-        return False
-    if cfg.M % nx or cfg.P % ny:
-        return False
-    return (sharded_pallas_supported(2, cfg.M // nx, cfg.P // ny, 4)
-            and distributed_packed_2d_supported(cfg.M, cfg.P, nx, ny))
-
-
-def _make_fused_local_step_2d(cfg: ModelConfig, ax: str, ay: str,
-                              nx: int, ny: int):
-    """Shard_map body of the 2-D-MESH fused step: the sharded v4 streamed
-    kernel runs on the local (L, m, p) tile with x-halo slabs ppermuted
-    over the x-ring exactly as in the (N, 1) form; its lane rolls wrap y
-    LOCALLY, so the two columns at each y edge (stencil radius 2: the
-    del^4 term) are then recomputed with properly-haloed XLA windows
-    (identical arithmetic to the generic halo path) and spliced in. The
-    inversion is the 2-D packed Pallas form (all_to_alls over the
-    flattened (x, y) axes — parallel/packed.py
-    DistributedPackedInverter2D)."""
-    from ..models.core import _resolve_fft_mxu
-    from ..ops.pallas_tendency import _H, fused_step_streamed_sharded
-    from .packed import DistributedPackedInverter2D
-
-    interp = jax.default_backend() != "tpu"
-    inverter = DistributedPackedInverter2D(
-        cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-        cfg.back_projection_matrix(), axis_x=ax, axis_y=ay,
-        interpret=interp, mxu=_resolve_fft_mxu(cfg))
-    fwd = [(i, (i + 1) % nx) for i in range(nx)]
-    bwd = [(i, (i - 1) % nx) for i in range(nx)]
-
-    def local_step(state: State) -> State:
-        def top(a):
-            if nx == 1:
-                return a[:, -_H:, :]
-            return jax.lax.ppermute(a[:, -_H:, :], ax, fwd)
-
-        def bot(a):
-            if nx == 1:
-                return a[:, :_H, :]
-            return jax.lax.ppermute(a[:, :_H, :], ax, bwd)
-
-        zeta_new, carry = fused_step_streamed_sharded(
-            cfg, state.zeta, state.psi, state.f1, state.f2, state.step,
-            top(state.zeta), bot(state.zeta), top(state.psi),
-            bot(state.psi), interp)
-
-        if ny > 1:
-            # y-edge correction: the kernel's lane rolls wrapped within the
-            # local tile; recompute output columns [0, 2) and [p-2, p) from
-            # exchanged halos (same _tend_window arithmetic as the generic
-            # sharded path) and apply the same scheme update.
-            p = state.zeta.shape[-1]
-            zeta_pad1 = exchange_halo(state.zeta, 1, ax, ay)
-            psi_pad2 = exchange_halo(state.psi, 2, ax, ay)
-
-            def fix(c0: int):
-                zw = zeta_pad1[..., :, c0:c0 + 4]
-                pw = psi_pad2[..., :, c0:c0 + 6]
-                tend = _tend_window(cfg, zw, pw, None)
-                cols = (slice(0, 2) if c0 == 0
-                        else slice(p - 2, p))
-                zc, f1c, f2c = (state.zeta[..., cols],
-                                state.f1[..., cols],
-                                state.f2[..., cols])
-                zn, c1, _ = _scheme_update(cfg, zc, f1c, f2c, state.step,
-                                           tend)
-                return cols, zn, c1
-
-            for c0 in (0, p - 2):
-                cols, zn, c1 = fix(c0)
-                zeta_new = zeta_new.at[..., cols].set(zn)
-                carry = carry.at[..., cols].set(c1)
-
-        psi_new = inverter(zeta_new)
-        if cfg.time_scheme == "leapfrog_ra":
-            return State(zeta_new, psi_new, carry, state.f2, state.step + 1)
-        return State(zeta_new, psi_new, carry, state.f1, state.step + 1)
-
-    return local_step
-
-
-def _make_fused_local_step(cfg: ModelConfig, ax: str, nx: int):
-    """Shard_map body of the Pallas-fused sharded step: ppermute the four
-    (L, H, P) halo slabs, run the sharded v4 streamed step kernel on the
-    local row block, invert via the distributed packed Pallas inverter.
-    Identical per-point arithmetic to the single-chip fused path."""
-    from ..models.core import _resolve_fft_mxu
-    from ..ops.pallas_tendency import _H, fused_step_streamed_sharded
-    from .packed import DistributedPackedInverter
-    from .paired import PairedDistributedInverter, paired_supported
-
-    interp = jax.default_backend() != "tpu"
-    # Paired-strip transposes (2 planes out + 2 back, no mirror companion —
-    # see parallel/paired.py) whenever each chip receives whole mirror
-    # pairs; the companion scheme remains the fallback.
-    cls = (PairedDistributedInverter if paired_supported(cfg.M, cfg.P, nx)
-           else DistributedPackedInverter)
-    inverter = cls(
-        cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-        cfg.back_projection_matrix(), axis_x=ax, interpret=interp,
-        mxu=_resolve_fft_mxu(cfg))
-    fwd = [(i, (i + 1) % nx) for i in range(nx)]
-    bwd = [(i, (i - 1) % nx) for i in range(nx)]
-
-    def local_step(state: State) -> State:
-        # nx == 1: both halos are the block's own wrap rows — slice them
-        # directly instead of issuing self-ppermutes (the collectives cost
-        # ~7% of the 1x1-mesh step; VERDICT round-3 item 4).
-        def top(a):   # rows just above the block: x-neighbor's last H rows
-            if nx == 1:
-                return a[:, -_H:, :]
-            return jax.lax.ppermute(a[:, -_H:, :], ax, fwd)
-
-        def bot(a):   # rows just below: next neighbor's first H rows
-            if nx == 1:
-                return a[:, :_H, :]
-            return jax.lax.ppermute(a[:, :_H, :], ax, bwd)
-
-        zeta_new, carry = fused_step_streamed_sharded(
-            cfg, state.zeta, state.psi, state.f1, state.f2, state.step,
-            top(state.zeta), bot(state.zeta), top(state.psi),
-            bot(state.psi), interp)
-        psi_new = inverter(zeta_new)
-        if cfg.time_scheme == "leapfrog_ra":
-            return State(zeta_new, psi_new, carry, state.f2, state.step + 1)
-        return State(zeta_new, psi_new, carry, state.f1, state.step + 1)
-
-    return local_step
-
-
 def make_halo_step_fn(cfg: ModelConfig, mesh: Mesh, donate: bool = True,
-                      overlap: bool = True, fused="auto",
-                      mg_seed: bool = False):
-    """Jitted sharded step using explicit halo exchange + distributed FFTs.
+                      overlap: bool = True, mg_seed: bool = False):
+    """Jitted sharded step using explicit halo exchange + distributed
+    elliptic solves (transposed FFT or multigrid, per ``elliptic_impl``).
 
     ``overlap=True`` (default) computes the tile interior concurrently with
     the ppermute halo exchanges; ``overlap=False`` keeps the blocking form
     (the equality oracle). Both produce identical results.
-
-    ``fused`` selects the Pallas-fused local step (sharded v4 streamed
-    tendency kernel + distributed packed Pallas-DFT inversion — see
-    tpu_qg.parallel.packed): "auto" uses it on TPU whenever
-    ``fused_halo_supported``; True forces it (interpret mode off-TPU, for
-    tests); False keeps the generic XLA stencil + jnp.fft path.
     """
     ax, ay = mesh.axis_names
     nx, ny = mesh.devices.shape
     m, p = cfg.M // nx, cfg.P // ny
-    assert m * nx == cfg.M and p * ny == cfg.P, "grid must divide the mesh"
-    # 2-D-mesh fused form (ny > 1): sharded v4 kernel with y-edge
-    # correction + the flattened-axes 2-D packed inversion.
-    use_2d = False
-    if ny > 1 and fused != False:  # noqa: E712  (fused may be "auto")
-        ok_2d = fused_2d_shape_supported(cfg, nx, ny)
-        if fused == "auto":
-            use_2d = (cfg.use_pallas and ok_2d
-                      and jax.default_backend() == "tpu")
-        else:
-            use_2d = ok_2d
-    if use_2d:
-        specs = State(zeta=P(None, ax, ay), psi=P(None, ax, ay),
-                      f1=P(None, ax, ay), f2=P(None, ax, ay), step=P())
-        sharded = jax.shard_map(
-            _make_fused_local_step_2d(cfg, ax, ay, nx, ny), mesh=mesh,
-            in_specs=(specs,), out_specs=specs, check_vma=False)
-        return jax.jit(sharded, donate_argnums=(0,) if donate else ())
-    if _resolve_fused(cfg, mesh, fused):
-        specs = State(zeta=P(None, ax, ay), psi=P(None, ax, ay),
-                      f1=P(None, ax, ay), f2=P(None, ax, ay), step=P())
-        sharded = jax.shard_map(_make_fused_local_step(cfg, ax, nx),
-                                mesh=mesh, in_specs=(specs,),
-                                out_specs=specs, check_vma=False)
-        return jax.jit(sharded, donate_argnums=(0,) if donate else ())
+    if m * nx != cfg.M or p * ny != cfg.P:
+        raise ValueError(f"grid ({cfg.M}, {cfg.P}) does not divide the "
+                         f"mesh ({nx}, {ny})")
     tendencies = (_local_tendencies_overlapped if overlap
                   else _local_tendencies)
 
@@ -421,47 +170,22 @@ def make_halo_step_fn(cfg: ModelConfig, mesh: Mesh, donate: bool = True,
     else:
         solver = DistributedHelmholtzSolver(
             cfg.M, cfg.P, cfg.dx, (0.0, cfg.S_eig), ax, ay)
-    if cfg.n_layers == 2:
-        (pi11, pi12), (pi21, pi22) = cfg.P_inv_matrix()
-        (b11, b12), (b21, b22) = cfg.back_projection_matrix()
-    dt = cfg.dt
 
     def local_step(state: State, psi_seed=None) -> State:
         tend = tendencies(cfg, state.zeta, state.psi, ax, ay)
-        if cfg.time_scheme == "leapfrog_ra":
-            # Leapfrog + Robert-Asselin (see models.core for the convention:
-            # f1 carries the filtered previous level).
-            zeta_prev_f = jnp.where(state.step == 0, state.zeta, state.f1)
-            leap = zeta_prev_f + (2.0 * dt) * tend
-            euler0 = state.zeta + dt * tend
-            zeta_new = jnp.where(state.step == 0, euler0, leap)
-            zeta_filt = state.zeta + cfg.ra_filter * (
-                zeta_prev_f - 2.0 * state.zeta + zeta_new)
-            f1_new, f2_new = zeta_filt, state.f2
-        else:
-            ab3 = dt * ((23.0 / 12.0) * tend
-                        - (16.0 / 12.0) * state.f1
-                        + (5.0 / 12.0) * state.f2)
-            euler = dt * tend
-            update = jnp.where(state.step < 2, euler, ab3)
-            zeta_new = state.zeta + update
-            f1_new, f2_new = tend, state.f1
-
+        zeta_new, f1_new, f2_new = scheme_update(
+            cfg, state.zeta, state.f1, state.f2, state.step, tend)
+        seed = state.psi if psi_seed is None else psi_seed
         if mg_inv is not None:
-            psi_new = mg_inv(zeta_new, psi_prev=(
-                state.psi if psi_seed is None else psi_seed))
+            psi_new = mg_inv(zeta_new, psi_prev=seed)
         elif mg_solver is not None:
-            psi_new = mg_solver(zeta_new, x0=(
-                state.psi if psi_seed is None else psi_seed))
+            psi_new = mg_solver(zeta_new, x0=seed)
         elif cfg.n_layers == 1:
             psi_new = solver(zeta_new)
         else:
-            modes = jnp.stack([pi11 * zeta_new[0] + pi12 * zeta_new[1],
-                               pi21 * zeta_new[0] + pi22 * zeta_new[1]])
-            pt = solver(modes)
-            psi_new = jnp.stack([b11 * pt[0] + b12 * pt[1],
-                                 b21 * pt[0] + b22 * pt[1]])
-
+            psi_new = modal_mix(cfg.back_projection_matrix(),
+                                solver(modal_mix(cfg.P_inv_matrix(),
+                                                 zeta_new)))
         return State(zeta_new, psi_new, f1_new, f2_new, state.step + 1)
 
     specs = State(
@@ -474,8 +198,8 @@ def make_halo_step_fn(cfg: ModelConfig, mesh: Mesh, donate: bool = True,
     if mg_seed:
         # Two-argument form for the extrapolated-warm-start scan
         # (make_halo_run_fn): the caller supplies the V-cycle seed.
-        assert mg_inv is not None or mg_solver is not None, (
-            "mg_seed=True requires elliptic_impl='multigrid'")
+        if mg_inv is None and mg_solver is None:
+            raise ValueError("mg_seed=True requires elliptic_impl='multigrid'")
         sharded2 = jax.shard_map(
             local_step, mesh=mesh, in_specs=(specs, P(None, ax, ay)),
             out_specs=specs, check_vma=False)
@@ -485,114 +209,11 @@ def make_halo_step_fn(cfg: ModelConfig, mesh: Mesh, donate: bool = True,
     return jax.jit(sharded, donate_argnums=(0,) if donate else ())
 
 
-def make_halo_chain_fns(cfg: ModelConfig, mesh: Mesh):
-    """Shard_map-local bodies (to_internal, step, to_external) of the SHARDED
-    step chain, or None when unsupported.
-
-    The distributed form of models.core.make_chain_fns: psi rides between
-    steps in permuted y-spectral LOCAL row blocks (the y-transform is
-    row-local, so the representation shards trivially over rows); one step is
-    the sharded v5 kernel (halo slabs ppermuted — psi slabs in spectral form)
-    plus the distributed single-pass x-stage (mirror companion, all_to_all
-    transposes, forward-x/symbols/inverse-x kernel).
-    """
-    nx, ny = mesh.devices.shape
-    ax = mesh.axis_names[0]
-    if ny != 1 or cfg.n_layers != 2 or cfg.poisson_gauge != "zero_mean":
-        return None
-    import jax.numpy as jnp
-
-    from ..models.core import _chain_next_state, _resolve_fft_mxu
-    from ..ops.pallas_tendency import (_H, fused_step_streamed_yspec_sharded,
-                                       sharded_yfused_supported)
-    from .packed import DistributedPackedInverter, distributed_packed_supported
-
-    m = cfg.M // nx
-    if cfg.M % nx or not (
-            sharded_yfused_supported(2, m, cfg.P,
-                                     jnp.dtype(cfg.dtype).itemsize)
-            and distributed_packed_supported(cfg.M, cfg.P, nx)):
-        return None
-    interp = jax.default_backend() != "tpu"
-    mxu = _resolve_fft_mxu(cfg)
-    from .paired import PairedDistributedInverter, paired_supported
-    cls = (PairedDistributedInverter if paired_supported(cfg.M, cfg.P, nx)
-           else DistributedPackedInverter)
-    inverter = cls(
-        cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-        cfg.back_projection_matrix(), axis_x=ax, interpret=interp, mxu=mxu)
-    pfft = inverter._pfft
-    fwd = [(i, (i + 1) % nx) for i in range(nx)]
-    bwd = [(i, (i - 1) % nx) for i in range(nx)]
-
-    def to_internal(state: State) -> State:
-        return state._replace(psi=pfft._call_y(state.psi, False))
-
-    def to_external(state: State) -> State:
-        return state._replace(psi=pfft._call_y(state.psi, True))
-
-    def step(state: State) -> State:
-        def top(a):   # nx == 1: the halo is the block's own wrap rows
-            if nx == 1:
-                return a[:, -_H:, :]
-            return jax.lax.ppermute(a[:, -_H:, :], ax, fwd)
-
-        def bot(a):
-            if nx == 1:
-                return a[:, :_H, :]
-            return jax.lax.ppermute(a[:, :_H, :], ax, bwd)
-
-        zeta_new, carry, zeta_ys = fused_step_streamed_yspec_sharded(
-            cfg, state.zeta, state.psi, state.f1, state.f2, state.step,
-            top(state.zeta), bot(state.zeta), top(state.psi),
-            bot(state.psi), mxu, interp)
-        psi_ys = inverter.x_stage(zeta_ys)
-        return _chain_next_state(cfg, state, zeta_new, psi_ys, carry)
-
-    return to_internal, step, to_external
-
-
-def make_halo_run_fn(cfg: ModelConfig, mesh: Mesh, overlap: bool = True,
-                     fused="auto", chain=None):
+def make_halo_run_fn(cfg: ModelConfig, mesh: Mesh, overlap: bool = True):
     """Returns ``run(state, n) -> state``: n halo-path steps under one
     ``lax.scan`` (shard_map composes inside scan), compiled once per n.
-
-    ``chain=None`` follows the single-chip chain resolution
-    (models.core._resolve_step_chain); True/False force. When the fused path
-    and the chain are both on and supported, the run converts psi to its
-    y-spectral internal form once, scans the 2-kernel sharded chain step,
-    and converts back — external semantics (checkpoints, diagnostics) always
-    see natural psi, as on one chip.
     """
     import functools
-
-    from ..models.core import _resolve_step_chain
-
-    want_chain = _resolve_step_chain(cfg) if chain is None else bool(chain)
-    if want_chain and _resolve_fused(cfg, mesh, fused):
-        fns = make_halo_chain_fns(cfg, mesh)
-        if fns is not None:
-            ti, st, te = fns
-            ax, ay = mesh.axis_names
-            specs = State(zeta=P(None, ax, ay), psi=P(None, ax, ay),
-                          f1=P(None, ax, ay), f2=P(None, ax, ay), step=P())
-
-            def sm(f):
-                return jax.shard_map(f, mesh=mesh, in_specs=(specs,),
-                                     out_specs=specs, check_vma=False)
-
-            ti_s, st_s, te_s = sm(ti), sm(st), sm(te)
-
-            @functools.lru_cache(maxsize=None)
-            def compiled(n: int):
-                def run(state: State) -> State:
-                    def body(s, _):
-                        return st_s(s), None
-                    out, _ = jax.lax.scan(body, ti_s(state), None, length=n)
-                    return te_s(out)
-                return jax.jit(run, donate_argnums=(0,))
-
-            return lambda state, n: compiled(n)(state)
 
     if cfg.elliptic_impl == "multigrid" and cfg.mg_extrapolate:
         # Extrapolated warm start: seed the V-cycles with 2 psi_n -
@@ -601,7 +222,7 @@ def make_halo_run_fn(cfg: ModelConfig, mesh: Mesh, overlap: bool = True,
         # than the O(dt) step change). psi_{n-1} rides the scan carry;
         # the first step of each chunk falls back to the plain seed.
         step2 = make_halo_step_fn(cfg, mesh, donate=False, overlap=overlap,
-                                  fused=fused, mg_seed=True)
+                                  mg_seed=True)
 
         @functools.lru_cache(maxsize=None)
         def compiled_x(n: int):
@@ -623,8 +244,7 @@ def make_halo_run_fn(cfg: ModelConfig, mesh: Mesh, overlap: bool = True,
                                               jnp.copy(state.psi))
 
     # make_halo_step_fn returns a jitted fn; jit-of-jit composes under scan.
-    step = make_halo_step_fn(cfg, mesh, donate=False, overlap=overlap,
-                             fused=fused)
+    step = make_halo_step_fn(cfg, mesh, donate=False, overlap=overlap)
 
     @functools.lru_cache(maxsize=None)
     def compiled(n: int):

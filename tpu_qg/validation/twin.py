@@ -4,8 +4,8 @@ Implements exactly the algorithm of the reference (Arakawa + 5-point stencils,
 Euler->AB3, modal inversion via *factorized sparse direct solves* in the
 reference's pinned-point Poisson gauge, including the P_matrix(H_1, H_1)
 back-projection quirk, reference: src/model.jl:173) but in NumPy/SciPy. It is
-the serialized-golden-trajectory generator the TPU path is checked against
-(SURVEY.md section 7.4): the TPU spectral path must match this twin allclose in
+the serialized-golden-trajectory generator the JAX path is checked against
+(SURVEY.md section 7.4): the JAX spectral path must match this twin allclose in
 float64, which transitively matches the Julia reference up to
 Cholesky-vs-LU roundoff.
 
